@@ -1,0 +1,715 @@
+"""The round engine: one walker interval for every peer (port of the
+legacy-store slice of ``dispersy_tpu/engine.py``).
+
+``step(state, cfg)`` advances all peers one round, phase by phase in the
+JAX package's order (its phase markers are kept below): churn, walker
+send with the Bloom claim, push forwarding, request delivery, request
+processing and the tracker fast path, puncture, response processing, the
+sync responder, combined intake through the store merge, the forward
+buffer, wrap-up.  Every random choice is a counter hash (:mod:`ops.rng`),
+so the port equals ``dispersy_tpu.engine.step`` on every leaf.
+
+The slice covers configs whose planes and protocol feature flags sit at
+their defaults (:func:`check_slice`); any other config raises
+``NotImplementedError`` before a round starts.  The hot ops go through
+the wrappers of :mod:`ops` — plain PyTorch for a CPU state, the
+hand-written kernels for a CUDA state.
+
+u32 values are carried in int64 between ops (``u32.py``); the store and
+the forward buffer stay in their ``torch.uint32`` / ``uint8`` columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dispersy_tpu_torch.config import (EMPTY_META, EMPTY_U32,
+                                       INTRO_REQUEST_BASE_BYTES,
+                                       INTRO_RESPONSE_BYTES, META_AUTHORIZE,
+                                       META_DESTROY, META_DYNAMIC,
+                                       META_REVOKE, META_UNDO_OTHER,
+                                       META_UNDO_OWN, NO_PEER,
+                                       PUNCTURE_BYTES, PUNCTURE_REQUEST_BYTES,
+                                       RECORD_BYTES, CommunityConfig)
+from dispersy_tpu_torch.ops import bloom
+from dispersy_tpu_torch.ops import candidates as cand
+from dispersy_tpu_torch.ops import inbox, intake, rng
+from dispersy_tpu_torch.ops import store as st
+from dispersy_tpu_torch.ops.hashing import record_hash
+from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
+                                       ParallelConfig, RecoveryConfig,
+                                       StoreConfig, TelemetryConfig,
+                                       TraceConfig)
+from dispersy_tpu_torch.state import NEVER, PeerState
+from dispersy_tpu_torch.u32 import MASK, bits, narrow, unbits, wide, zeros
+
+# Loss-draw salt blocks (engine.py): one disjoint block per packet kind.
+_LOSS_REQUEST = 0 << 16
+_LOSS_RESPONSE = 1 << 16
+_LOSS_PUNCTURE_REQ = 2 << 16
+_LOSS_PUNCTURE = 3 << 16
+_LOSS_SYNC = 4 << 16
+_LOSS_FORWARD = 5 << 16
+_TRACKER_SALT = 1 << 15
+_TRACKER_INTRO_SALT = 1 << 20
+
+# The round's counters that the slice writes; the rest pass through.
+_COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
+             "requests_dropped", "punctures", "msgs_forwarded", "bytes_up",
+             "bytes_down", "accepted_by_meta")
+
+
+def check_slice(cfg: CommunityConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
+    is off the ported slice (legacy store, every plane and protocol
+    feature flag at its default, public NAT)."""
+    off = [
+        ("store", cfg.store != StoreConfig()),
+        ("faults", cfg.faults != FaultModel()),
+        ("telemetry", cfg.telemetry != TelemetryConfig()),
+        ("trace", cfg.trace != TraceConfig()),
+        ("recovery", cfg.recovery != RecoveryConfig()),
+        ("overload", cfg.overload != OverloadConfig()),
+        ("parallel", cfg.parallel != ParallelConfig()),
+        ("communities", bool(cfg.communities)),
+        ("timeline_enabled", cfg.timeline_enabled),
+        ("delay_inbox", cfg.delay_inbox > 0),
+        ("proof_requests", cfg.proof_requests),
+        ("seq_requests", cfg.seq_requests),
+        ("msg_requests", cfg.msg_requests),
+        ("identity_enabled", cfg.identity_enabled),
+        ("identity_required", cfg.identity_required),
+        ("identity_requests", cfg.identity_requests),
+        ("malicious_enabled", cfg.malicious_enabled),
+        ("malicious_gossip", cfg.malicious_gossip),
+        ("double_meta_mask", bool(cfg.double_meta_mask)),
+        ("last_sync_history", cfg.any_last_sync),
+        ("meta_priority", len(set(cfg.priorities)) > 1),
+        ("desc_meta_mask", bool(cfg.desc_meta_mask)),
+        ("direct_meta_mask", bool(cfg.direct_meta_mask)),
+        ("seq_meta_mask", bool(cfg.seq_meta_mask)),
+        ("p_symmetric", cfg.p_symmetric > 0.0),
+    ]
+    for name, is_off in off:
+        if is_off:
+            raise NotImplementedError(
+                f"CommunityConfig.{name} is off the ported slice (the "
+                "legacy-store round with every optional plane and feature "
+                "flag at its default)")
+
+
+def _f32(x: float, dev) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _fill(mask: torch.Tensor, col: torch.Tensor, fill) -> torch.Tensor:
+    """``where(mask, fill, col)`` in ``col``'s dtype (through bit views)."""
+    fb = st.fill_bits((), fill, col.dtype, col.device)
+    return unbits(torch.where(mask, fb, bits(col)), col.dtype)
+
+
+def _bcast_edges(col: torch.Tensor, n: int, f: int, c: int) -> torch.Tensor:
+    """[N, F] column -> [N·F·C] edge column, each entry repeated C times."""
+    b = bits(col)[:, :, None].expand(n, f, c).reshape(-1)
+    return unbits(b.contiguous(), col.dtype)
+
+
+def _lost(cfg: CommunityConfig, seed, rnd, edge_peer, salt_base: int,
+          salt) -> torch.Tensor:
+    """Per-packet Bernoulli loss (the base i.i.d. channel)."""
+    salt = salt if isinstance(salt, torch.Tensor) else torch.tensor(
+        salt, device=seed.device)
+    if cfg.packet_loss > 0.0:
+        u = rng.rand_uniform(seed, rnd, edge_peer, rng.P_LOSS,
+                             salt + salt_base)
+        return u < _f32(cfg.packet_loss, seed.device)
+    shape = torch.broadcast_shapes(tuple(edge_peer.shape), tuple(salt.shape))
+    return torch.zeros(shape, dtype=torch.bool, device=seed.device)
+
+
+def _fold_gt(own, seen, seen_valid, rng_range: int) -> torch.Tensor:
+    """Lamport fold over acceptable observed global times (carriers)."""
+    acceptable = seen_valid & (seen <= ((own[:, None] + rng_range) & MASK))
+    best = torch.where(acceptable, seen, 0).amax(dim=1) \
+        if seen.shape[1] else torch.zeros_like(own)
+    return torch.maximum(own, best)
+
+
+def _tab(state: PeerState) -> cand.CandTable:
+    return cand.CandTable(peer=state.cand_peer,
+                          last_walk=state.cand_last_walk,
+                          last_stumble=state.cand_last_stumble,
+                          last_intro=state.cand_last_intro)
+
+
+def _store(state: PeerState) -> st.StoreCols:
+    return st.StoreCols(gt=state.store_gt, member=state.store_member,
+                        meta=state.store_meta, payload=state.store_payload,
+                        aux=state.store_aux, flags=state.store_flags)
+
+
+def _layout_cols(cfg: CommunityConfig, dev):
+    """Per-row (boot_base, boot_count, mem_base, mem_count), single
+    community: the global tracker and member ranges."""
+    n, t = cfg.n_peers, cfg.n_trackers
+
+    def full(v):
+        return torch.full((n,), v, dtype=torch.int32, device=dev)
+    return full(0), full(t), full(t), full(n - t)
+
+
+def _stats_out(state: PeerState, acc: dict):
+    """Fold the round's int64 counter deltas into the u32 stats."""
+    upd = {name: narrow(wide(getattr(state.stats, name)) + acc[name])
+           for name in _COUNTERS}
+    return state.stats.replace(**upd)
+
+
+def step(state: PeerState, cfg: CommunityConfig,
+         phase: str | None = None) -> PeerState:
+    """Advance every peer one walker interval (~5 simulated seconds).
+
+    ``phase`` only matters under the byte-diet store, which is off the
+    slice, so it is accepted and ignored.  Runs on the state's device.
+    """
+    del phase
+    check_slice(cfg)
+    return _step_impl(state, cfg)
+
+
+def multi_step(state: PeerState, cfg: CommunityConfig, k: int) -> PeerState:
+    """Advance ``k`` rounds."""
+    check_slice(cfg)
+    for _ in range(k):
+        state = _step_impl(state, cfg)
+    return state
+
+
+def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
+    n, t = cfg.n_peers, cfg.n_trackers
+    dev = state.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    idx_u32 = narrow(idx)
+    seed = rng.fold_seed(wide(state.key))
+    rnd = wide(state.round_index)
+    salt = state.round_index            # u32 0-dim: the per-round bloom salt
+    now = state.time
+    z64 = torch.zeros(n, dtype=torch.int64, device=dev)
+    acc = {name: z64.clone() for name in _COUNTERS}
+    acc["accepted_by_meta"] = torch.zeros((n, cfg.n_meta + 1),
+                                          dtype=torch.int64, device=dev)
+    bup, bdown = z64.clone(), z64.clone()
+    sync_on = cfg.sync_enabled
+    req_bytes = (INTRO_REQUEST_BASE_BYTES + 4 * cfg.bloom_words
+                 if sync_on else INTRO_REQUEST_BASE_BYTES - 20)
+    rng_range = cfg.acceptable_global_time_range
+
+    # ---- phase 0: churn -------------------------------------------------
+    # A churned peer restarts with a wiped disk: empty store, empty
+    # candidate table and forward buffer, clock reset, session bumped.
+    # Trackers never churn.
+    tab, stc = _tab(state), _store(state)
+    fwd = (state.fwd_gt, state.fwd_member, state.fwd_meta,
+           state.fwd_payload, state.fwd_aux)
+    global_time, session = wide(state.global_time), wide(state.session)
+    loaded = state.loaded
+    if cfg.churn_rate > 0.0:
+        reborn = state.alive & ~state.is_tracker & (
+            rng.rand_uniform(seed, rnd, idx, rng.P_CHURN)
+            < _f32(cfg.churn_rate, dev))
+        m1 = reborn[:, None]
+        never = _f32(NEVER, dev)
+        tab = cand.CandTable(
+            peer=torch.where(m1, NO_PEER, tab.peer),
+            last_walk=torch.where(m1, never, tab.last_walk),
+            last_stumble=torch.where(m1, never, tab.last_stumble),
+            last_intro=torch.where(m1, never, tab.last_intro))
+        stc = st.StoreCols(*(
+            _fill(m1, c, f) for c, f in zip(
+                stc, (EMPTY_U32, EMPTY_U32, EMPTY_META, EMPTY_U32, 0, 0))))
+        fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
+        global_time = torch.where(reborn, 1, global_time)
+        session = session + reborn.to(torch.int64)
+        loaded = torch.where(reborn, True, loaded)
+    alive = state.alive
+    act = alive & loaded            # participating this round
+    arrivals = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    # ---- phase 1: walker send ------------------------------------------
+    # dispersy_get_walk_candidate + create_introduction_request; trackers
+    # never walk.
+    boot_base, boot_count, _, _ = _layout_cols(cfg, dev)
+    if cfg.walker_enabled:
+        target = cand.sample_walk_target(tab, now, cfg, seed, rnd, idx,
+                                         boot_base, boot_count)
+        target = torch.where(act & ~state.is_tracker, target, NO_PEER)
+    else:
+        target = torch.full((n,), NO_PEER, dtype=torch.int32, device=dev)
+
+    if sync_on:
+        # dispersy_claim_sync_bloom_filter: pick a store slice, fill a
+        # bloom salted with the round index (the per-claim filter prefix).
+        if cfg.sync_strategy == "modulo":
+            sl = st.claim_slice_modulo(stc.gt, cfg.bloom_capacity, rnd)
+        else:
+            sl = st.claim_slice_largest(stc.gt, cfg.bloom_capacity)
+        in_slice = st.slice_mask(stc.gt, sl)
+        rec_h = narrow(record_hash(stc.member, stc.gt, stc.meta,
+                                   stc.payload))
+        my_bloom = bloom.bloom_build(rec_h, in_slice, cfg.bloom_bits,
+                                     cfg.bloom_hashes, salt=salt)
+
+    # ---- phase 1f: push forwarding (store_update_forward's _forward) ----
+    # Last round's fresh records go to `forward_fanout` distinct verified
+    # candidates, one candidate set per peer per round.
+    if cfg.forward_fanout > 0:
+        f, c = cfg.forward_buffer, cfg.forward_fanout
+        fwd_targets = cand.sample_forward_targets(tab, now, cfg, seed, rnd,
+                                                  idx)
+        have_rec = (bits(fwd[0]) != -1)[:, :, None]
+        tgt_ok = (fwd_targets != NO_PEER)[:, None, :]
+        fc_salt = (torch.arange(f, device=dev)[:, None] * c
+                   + torch.arange(c, device=dev)[None, :])[None]
+        push_lost = _lost(cfg, seed, rnd, idx[:, None, None], _LOSS_FORWARD,
+                          fc_salt)
+        push_sent = act[:, None, None] & have_rec & tgt_ok
+        push_valid = push_sent & ~push_lost
+        push_dst = fwd_targets[:, None, :].expand(n, f, c).reshape(-1)
+        push = inbox.deliver(
+            push_dst.contiguous(),
+            [_bcast_edges(col, n, f, c) for col in fwd],
+            push_valid.reshape(-1).contiguous(), n, cfg.push_inbox)
+        ph_gt, ph_member, ph_meta, ph_payload, ph_aux = push.inbox
+        arrivals = arrivals | push.inbox_valid.any(dim=1)
+        ph_ok = push.inbox_valid & act[:, None]
+        acc["msgs_forwarded"] += push_valid.sum(dim=(1, 2))
+        acc["msgs_dropped"] += push.n_dropped
+        bup = bup + push_sent.sum(dim=(1, 2)) * RECORD_BYTES
+        bdown = bdown + ph_ok.sum(dim=1) * RECORD_BYTES
+    else:
+        p0 = zeros((n, 0), torch.uint32, dev)
+        ph_gt = ph_member = ph_payload = ph_aux = p0
+        ph_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
+        ph_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+
+    req_lost = _lost(cfg, seed, rnd, idx, _LOSS_REQUEST, 0)
+    bup = bup + (act & (target != NO_PEER)) * req_bytes
+    send_ok = act & (target != NO_PEER) & ~req_lost
+    to_tracker = (target >= 0) & (target < t)
+    # Requests carry the sender's clock as of round start.
+    gt_at_send = narrow(global_time)
+
+    if sync_on:
+        req_cols = [idx_u32, narrow(sl.time_low), narrow(sl.time_high),
+                    narrow(sl.modulo), narrow(sl.offset), gt_at_send,
+                    my_bloom]
+    else:
+        req_cols = [idx_u32, gt_at_send]
+    req = inbox.deliver(target, req_cols, send_ok & ~to_tracker, n,
+                        cfg.request_inbox)
+    if sync_on:
+        (rq_src, rq_tlow, rq_thigh, rq_mod, rq_off, rq_gt,
+         rq_bloom) = req.inbox
+    else:
+        rq_src, rq_gt = req.inbox
+    arrivals = arrivals | req.inbox_valid.any(dim=1)
+    rq_ok = req.inbox_valid & act[:, None]                   # [N, R]
+    rq_src_i = torch.where(rq_ok, bits(rq_src), NO_PEER)
+    acc["requests_dropped"] += req.n_dropped
+    n_rq = rq_ok.sum(dim=1)
+    bdown = bdown + n_rq * req_bytes
+    bup = bup + n_rq * INTRO_RESPONSE_BYTES
+
+    # ---- phase 2: request processing at the responder ------------------
+    # on_introduction_request: stumble the requester, pick a third peer,
+    # send introduction-response + puncture-request, serve the slice.
+    r = cfg.request_inbox
+    tab = cand.upsert_many(
+        tab, upd_peer=rq_src_i,
+        upd_kind=torch.full((n, r), cand.KIND_STUMBLE, dtype=torch.int32,
+                            device=dev),
+        upd_valid=rq_ok, now=now, self_idx=idx, n_trackers=t)
+    global_time = _fold_gt(global_time, wide(rq_gt), rq_ok, rng_range)
+
+    # ---- phase 2t: the tracker fast path -------------------------------
+    if t > 0:
+        rt = cfg.tracker_inbox
+        k = cfg.k_candidates
+        tidx = torch.arange(t, dtype=torch.int64, device=dev)
+        treq = inbox.deliver(target, [idx_u32, gt_at_send],
+                             send_ok & to_tracker, t, rt)
+        tq_src, tq_gt = treq.inbox                           # [T, Rt]
+        tq_ok = treq.inbox_valid & act[:t][:, None]
+        tq_src_i = torch.where(tq_ok, bits(tq_src), NO_PEER)
+        # Recent-contact ring in the tracker's candidate rows: up to K
+        # stumbles per round land in rotating unique slots, a returning
+        # requester's stale entry cleared first.
+        kr = min(rt, k)
+        slot = ((rnd * rt + torch.arange(kr, device=dev)) & MASK) % k
+        slot_b = slot[None, :].expand(t, kr)
+        ring_ok = tq_ok[:, :kr]
+        ring_src = tq_src_i[:, :kr]
+        stale = ((tab.peer[:t][:, :, None] == ring_src[:, None, :])
+                 & ring_ok[:, None, :]).any(dim=-1)           # [T, K]
+        never = _f32(NEVER, dev)
+
+        def ring(full, vals, clear):
+            full = full.clone()
+            rows = full[:t]
+            rows.copy_(torch.where(stale, clear, rows))
+            cur = torch.gather(rows, 1, slot_b)
+            rows.scatter_(1, slot_b, torch.where(ring_ok, vals, cur))
+            return full
+
+        tab = cand.CandTable(
+            peer=ring(tab.peer, ring_src, NO_PEER),
+            last_walk=ring(tab.last_walk, never.expand(t, kr), never),
+            last_stumble=ring(tab.last_stumble, now.expand(t, kr), never),
+            last_intro=ring(tab.last_intro, never.expand(t, kr), never))
+        ttab = cand.CandTable(*(col[:t] for col in tab))
+        intro_ring = cand.sample_introductions(
+            ttab, now, cfg, seed, rnd, tidx, exclude=tq_src_i,
+            salt_base=_TRACKER_INTRO_SALT)                   # [T, Rt]
+        # Introduce requester s to another requester of this round's
+        # inbox; fall back to the ring pick when that slot is empty.
+        s_ix = torch.arange(rt, dtype=torch.int64, device=dev)[None, :]
+        jj = ((s_ix + 1 + rng.rand_u32(seed, rnd, tidx[:, None], rng.P_INTRO,
+                                       s_ix + _TRACKER_INTRO_SALT + (1 << 18))
+               % max(rt - 1, 1)) % rt)
+        intro_inbox = torch.gather(tq_src_i, 1, jj)
+        intro_inbox = torch.where(intro_inbox == tq_src_i, NO_PEER,
+                                  intro_inbox)
+        intro_t = torch.where(intro_inbox != NO_PEER, intro_inbox,
+                              intro_ring)
+        global_time = torch.cat([
+            _fold_gt(global_time[:t], wide(tq_gt), tq_ok, rng_range),
+            global_time[t:]])
+        acc["requests_dropped"][:t] += treq.n_dropped
+        n_tq = tq_ok.sum(dim=1)
+        bdown[:t] += n_tq * req_bytes
+        bup[:t] += (n_tq * INTRO_RESPONSE_BYTES
+                    + (tq_ok & (intro_t != NO_PEER)).sum(dim=1)
+                    * PUNCTURE_REQUEST_BYTES)
+    else:
+        rt = 0
+
+    intro = cand.sample_introductions(tab, now, cfg, seed, rnd, idx,
+                                      exclude=rq_src_i)      # [N, R]
+    bup = bup + (rq_ok & (intro != NO_PEER)).sum(dim=1) \
+        * PUNCTURE_REQUEST_BYTES
+
+    # Introduction responses are picked up by receipt (edge_slot), so
+    # only the puncture-request hop needs a second delivery:
+    # responder -> introduced peer, naming the requester.
+    salt_r = torch.arange(r, device=dev)[None, :]
+    pr_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_PUNCTURE_REQ, salt_r)
+    pr_ok_send = rq_ok & (intro != NO_PEER) & ~pr_lost
+    pr_dst = [intro.reshape(-1)]
+    pr_target = [rq_src_i.reshape(-1)]
+    pr_valid = [pr_ok_send.reshape(-1)]
+    if t > 0:
+        salt_rt = torch.arange(rt, device=dev)[None, :] + _TRACKER_SALT
+        tpr_lost = _lost(cfg, seed, rnd, tidx[:, None], _LOSS_PUNCTURE_REQ,
+                         salt_rt)
+        tpr_ok_send = tq_ok & (intro_t != NO_PEER) & ~tpr_lost
+        pr_dst.append(intro_t.reshape(-1))
+        pr_target.append(tq_src_i.reshape(-1))
+        pr_valid.append(tpr_ok_send.reshape(-1))
+    punc_req = inbox.deliver(
+        torch.cat(pr_dst).to(torch.int32),
+        [torch.cat(pr_target).to(torch.int32).view(torch.uint32)],
+        torch.cat(pr_valid), n, cfg.request_inbox)
+    (pq_target,) = punc_req.inbox                             # [N, P]
+    arrivals = arrivals | punc_req.inbox_valid.any(dim=1)
+    pq_ok = punc_req.inbox_valid & act[:, None]
+    acc["punctures"] += pq_ok.sum(dim=1)
+    acc["requests_dropped"] += punc_req.n_dropped
+    n_pq = pq_ok.sum(dim=1)
+    bdown = bdown + n_pq * PUNCTURE_REQUEST_BYTES
+    bup = bup + n_pq * PUNCTURE_BYTES
+
+    # ---- phase 4: puncture hop (C -> requester) ------------------------
+    p = cfg.request_inbox
+    salt_p = torch.arange(p, device=dev)[None, :]
+    pu_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_PUNCTURE, salt_p)
+    pu_ok_send = pq_ok & ~pu_lost
+    punc = inbox.deliver(
+        bits(pq_target).reshape(-1),
+        [_bcast_edges(idx_u32[:, None], n, 1, p)],
+        pu_ok_send.reshape(-1), n, cfg.request_inbox)
+    (pu_from,) = punc.inbox
+    arrivals = arrivals | punc.inbox_valid.any(dim=1)
+    pu_ok = punc.inbox_valid & act[:, None]
+    acc["requests_dropped"] += punc.n_dropped
+    bdown = bdown + pu_ok.sum(dim=1) * PUNCTURE_BYTES
+
+    # ---- phase 3: response processing at the requester -----------------
+    # on_introduction_response: mark the responder walked, the introduced
+    # peer introduced; a request without a response this round is a
+    # failed walk and its stale candidate is dropped.
+    tgt = target.to(torch.int64).clamp(min=0)
+    slot_n = req.edge_slot.to(torch.int64).clamp(min=0)
+    got_n = (req.edge_slot >= 0) & rq_ok[tgt, slot_n]
+    intro_n = intro[tgt, slot_n]
+    if t > 0:
+        slot_t = treq.edge_slot.to(torch.int64).clamp(min=0)
+        tgt_t = tgt.clamp(max=t - 1)
+        got_t = (treq.edge_slot >= 0) & tq_ok[tgt_t, slot_t]
+        got_raw = torch.where(to_tracker, got_t, got_n)
+        intro_pick = torch.where(to_tracker, intro_t[tgt_t, slot_t], intro_n)
+    else:
+        got_raw, intro_pick = got_n, intro_n
+    resp_lost = _lost(cfg, seed, rnd, idx, _LOSS_RESPONSE, 0)
+    got_resp = got_raw & ~resp_lost & act
+    bdown = bdown + got_resp * INTRO_RESPONSE_BYTES
+    walked = torch.where(got_resp, target, NO_PEER)
+    introduced = torch.where(got_resp, intro_pick, NO_PEER)
+    rs_gt = global_time[tgt][:, None]                         # responder clock
+    rs_ok = got_resp[:, None]
+    upd_peer = torch.cat(
+        [walked[:, None].to(torch.int32), introduced[:, None].to(torch.int32),
+         torch.where(pu_ok, bits(pu_from), NO_PEER)], dim=1)
+    upd_kind = torch.cat(
+        [torch.full((n, 1), cand.KIND_WALK, dtype=torch.int32, device=dev),
+         torch.full((n, 1), cand.KIND_INTRO, dtype=torch.int32, device=dev),
+         torch.full((n, p), cand.KIND_STUMBLE, dtype=torch.int32,
+                    device=dev)], dim=1)
+    tab = cand.upsert_many(tab, upd_peer, upd_kind,
+                           upd_valid=upd_peer != NO_PEER, now=now,
+                           self_idx=idx, n_trackers=t)
+    global_time = _fold_gt(global_time, rs_gt, rs_ok, rng_range)
+    walked_ok = act & (target != NO_PEER)
+    failed = walked_ok & ~got_resp
+    tab = cand.remove(tab, target, failed)
+    acc["walk_success"] += walked_ok & got_resp
+    acc["walk_fail"] += failed
+
+    # ---- phase 2b/5: sync responder ------------------------------------
+    # Per request slot the responder fills an outbox of up to
+    # `response_budget` records the requester's bloom lacks, in store
+    # order; the requester fetches its outbox row by receipt.
+    if sync_on:
+        b = cfg.response_budget
+        outs = []
+        for s in range(r):
+            sl_s = st.SyncSlice(time_low=rq_tlow[:, s], time_high=rq_thigh[:, s],
+                                modulo=rq_mod[:, s], offset=rq_off[:, s])
+            in_sl = st.slice_mask(stc.gt, sl_s)
+            present = bloom.bloom_query(rq_bloom[:, s], rec_h,
+                                        cfg.bloom_bits, cfg.bloom_hashes,
+                                        salt=salt)
+            missing = in_sl & ~present & rq_ok[:, s:s + 1]
+            rank = torch.cumsum(missing.to(torch.int32), dim=1) - 1
+            slot = torch.where(missing & (rank < b), rank, b)
+            outs.append(st.rank_compact_many(
+                [(stc.gt, EMPTY_U32), (stc.member, EMPTY_U32),
+                 (stc.meta, EMPTY_META), (stc.payload, EMPTY_U32),
+                 (stc.aux, 0), (missing, False)], slot, b))
+        obox = [torch.stack([bits(o[i]) for o in outs], dim=1)
+                for i in range(6)]                            # [N, R, b]
+        sy_gt, sy_member, sy_meta, sy_payload, sy_aux = (
+            unbits(col[tgt, slot_n], dt) for col, dt in zip(
+                obox[:5], (stc.gt.dtype, stc.member.dtype, stc.meta.dtype,
+                           stc.payload.dtype, stc.aux.dtype)))
+        obox_ok = obox[5]
+        sync_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_SYNC,
+                          torch.arange(b, device=dev)[None, :])
+        sy_ok = (obox_ok[tgt, slot_n] & (req.edge_slot >= 0)[:, None]
+                 & act[:, None] & ~sync_lost)
+        bup = bup + obox_ok.sum(dim=(1, 2)) * RECORD_BYTES
+        bdown = bdown + sy_ok.sum(dim=1) * RECORD_BYTES
+    else:
+        s0 = zeros((n, 0), torch.uint32, dev)
+        sy_gt = sy_member = sy_payload = sy_aux = s0
+        sy_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
+        sy_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+
+    # ---- phase 5: combined intake (sync pull + push) -> store ----------
+    # One batch per round, sync records first, then pushed records, in
+    # delivery order.
+    def cat2(a, b_):
+        return unbits(torch.cat([bits(a), bits(b_)], dim=1), a.dtype)
+    in_gt, in_member, in_meta, in_payload, in_aux = (
+        cat2(a, b_) for a, b_ in ((sy_gt, ph_gt), (sy_member, ph_member),
+                                  (sy_meta, ph_meta),
+                                  (sy_payload, ph_payload), (sy_aux, ph_aux)))
+    in_ok = torch.cat([sy_ok, ph_ok], dim=1)
+    bb = in_gt.shape[1]
+    fb = cfg.forward_buffer
+    if bb > 0:
+        # Clock-jump defense before the store accepts anything.
+        in_ok = in_ok & (wide(in_gt) <= ((global_time[:, None] + rng_range)
+                                         & MASK))
+        # Freshness: not already stored on UNIQUE(member, global_time) and
+        # not a duplicate of an earlier record in this batch.
+        in_store, dup_in_batch = intake.intake_checks(
+            stc.gt, stc.member, in_member, in_gt, in_ok)
+        in_flags = torch.zeros(in_gt.shape, dtype=torch.uint8, device=dev)
+        accept = in_ok
+        fresh = accept & ~in_store & ~dup_in_batch           # [N, B]
+        bucket = torch.where(in_meta.to(torch.int64) < cfg.n_meta,
+                             in_meta.to(torch.int64), cfg.n_meta)
+        acc["accepted_by_meta"] += (
+            (bucket[:, :, None] == torch.arange(cfg.n_meta + 1,
+                                                device=dev)[None, None, :])
+            & fresh[:, :, None]).sum(dim=1)
+        ins = st.store_insert(
+            stc, st.StoreCols(gt=in_gt, member=in_member, meta=in_meta,
+                              payload=in_payload, aux=in_aux,
+                              flags=in_flags),
+            new_mask=accept, history=cfg.history)
+        stc = ins.store
+        global_time = _fold_gt(global_time, wide(in_gt), accept, rng_range)
+        acc["msgs_stored"] += ins.n_inserted
+        acc["msgs_dropped"] += ins.n_dropped.to(torch.int64) + ins.n_evicted
+        # Next round's forward batch = the first F fresh records.
+        rank = torch.cumsum(fresh.to(torch.int32), dim=1) - 1
+        fslot = torch.where(fresh & (rank < fb), rank, fb)
+        fwd = tuple(st.rank_compact_many(
+            [(col, st.empty_of(col.dtype))
+             for col in (in_gt, in_member, in_meta, in_payload, in_aux)],
+            fslot, fb))
+    else:
+        fwd = tuple(
+            unbits(st.fill_bits((n, fb), st.empty_of(dt), dt, dev), dt)
+            for dt in (torch.uint32, torch.uint32, torch.uint8,
+                       torch.uint32, torch.uint32))
+
+    # ---- wrap up --------------------------------------------------------
+    if cfg.auto_load:
+        # Any community packet that reached an unloaded peer loads its
+        # instance for the next round.
+        loaded = loaded | (arrivals & alive)
+    acc["bytes_up"] += bup
+    acc["bytes_down"] += bdown
+    return state.replace(
+        loaded=loaded, session=narrow(session),
+        global_time=narrow(global_time),
+        cand_peer=tab.peer.to(torch.int32), cand_last_walk=tab.last_walk,
+        cand_last_stumble=tab.last_stumble, cand_last_intro=tab.last_intro,
+        store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
+        store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
+        fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
+        fwd_payload=fwd[3], fwd_aux=fwd[4],
+        stats=_stats_out(state, acc),
+        time=now + _f32(cfg.walk_interval, dev),
+        round_index=narrow(rnd + 1),
+    )
+
+
+def create_messages(state: PeerState, cfg: CommunityConfig,
+                    author_mask: torch.Tensor, meta: int,
+                    payload: torch.Tensor,
+                    aux: torch.Tensor | None = None) -> PeerState:
+    """Application send: each masked (and loaded) peer authors one record,
+    claims global_time + 1, stores it locally and puts it in its forward
+    buffer (displacing the newest relayed entry when the buffer is full).
+    """
+    check_slice(cfg)
+    if meta in (META_AUTHORIZE, META_REVOKE, META_UNDO_OWN, META_UNDO_OTHER,
+                META_DYNAMIC, META_DESTROY):
+        raise ValueError(
+            f"meta {meta:#x} is a permission control message; it needs "
+            "timeline_enabled=True, which is off the ported slice")
+    n = cfg.n_peers
+    dev = state.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    aux = (torch.zeros(n, dtype=torch.int64, device=dev) if aux is None
+           else wide(torch.as_tensor(aux, device=dev)).reshape(n))
+    payload = wide(torch.as_tensor(payload, device=dev)).reshape(n)
+    author_mask = torch.as_tensor(author_mask, device=dev) & state.loaded
+    gt_new = wide(state.global_time) + 1
+    new = st.StoreCols(
+        gt=narrow(gt_new)[:, None], member=narrow(idx)[:, None],
+        meta=torch.full((n, 1), meta, dtype=torch.uint8, device=dev),
+        payload=narrow(payload)[:, None], aux=narrow(aux)[:, None],
+        flags=torch.zeros((n, 1), dtype=torch.uint8, device=dev))
+    ins = st.store_insert(_store(state), new, author_mask[:, None],
+                          history=cfg.history)
+    stc = ins.store
+    fb = cfg.forward_buffer
+    fwd = [state.fwd_gt, state.fwd_member, state.fwd_meta,
+           state.fwd_payload, state.fwd_aux]
+    if fb > 0:
+        put = st.count_valid(state.fwd_gt).to(torch.int64).clamp(max=fb - 1)
+
+        def buf(cur, val):
+            cb = bits(cur).clone()
+            old = cb[idx, put]
+            cb[idx, put] = torch.where(author_mask, bits(val), old)
+            return unbits(cb, cur.dtype)
+        fwd = [buf(cur, col[:, 0]) for cur, col in zip(
+            fwd, (new.gt, new.member, new.meta, new.payload, new.aux))]
+    abm = wide(state.stats.accepted_by_meta)
+    abm[:, min(meta, cfg.n_meta)] += author_mask.to(torch.int64)
+    return state.replace(
+        store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
+        store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
+        fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
+        fwd_payload=fwd[3], fwd_aux=fwd[4],
+        global_time=narrow(torch.where(author_mask, gt_new,
+                                       wide(state.global_time))),
+        stats=state.stats.replace(
+            msgs_stored=narrow(wide(state.stats.msgs_stored)
+                               + ins.n_inserted),
+            accepted_by_meta=narrow(abm)))
+
+
+def seed_overlay(state: PeerState, cfg: CommunityConfig,
+                 degree: int) -> PeerState:
+    """Pre-seed every peer's candidate table with ``degree`` random walked
+    member neighbours, stamped immediately eligible (a duplicate draw
+    leaves its slot empty)."""
+    n, t = cfg.n_peers, cfg.n_trackers
+    if not 0 <= degree <= cfg.k_candidates:
+        raise ValueError(f"degree {degree} must be in [0, k_candidates="
+                         f"{cfg.k_candidates}]")
+    if n - t <= 1:
+        raise ValueError("need at least two non-tracker peers to seed an "
+                         "overlay")
+    if cfg.communities:
+        raise NotImplementedError("communities are off the ported slice")
+    dev = state.device
+    seed = rng.fold_seed(wide(state.key))
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    j = torch.arange(degree, device=dev)[None, :]
+    base, span = t, max(n - t, 1)
+    nbr = base + rng.rand_u32(seed, 0xE1, idx[:, None], rng.P_GOSSIP,
+                              j) % span
+    nbr = torch.where(nbr == idx[:, None], base + (nbr - base + 1) % span,
+                      nbr)
+    earlier = (torch.arange(degree, device=dev)[None, :]
+               < torch.arange(degree, device=dev)[:, None])   # [i, j]: j < i
+    dup = (nbr[:, :, None] == torch.where(earlier, nbr[:, None, :],
+                                          NO_PEER)).any(dim=-1)
+    nbr = torch.where(dup, NO_PEER, nbr).to(torch.int32)
+    eligible_at = _f32(0.0, dev) - _f32(cfg.eligibility_delay, dev)
+    pad = cfg.k_candidates - degree
+    never = _f32(NEVER, dev)
+
+    def never_k():
+        return torch.full((n, cfg.k_candidates), NEVER, dtype=torch.float32,
+                          device=dev)
+    return state.replace(
+        cand_peer=torch.cat([nbr, torch.full((n, pad), NO_PEER,
+                                             dtype=torch.int32, device=dev)],
+                            dim=1),
+        cand_last_walk=torch.cat(
+            [torch.where(nbr == NO_PEER, never, eligible_at),
+             never.expand(n, pad)], dim=1),
+        cand_last_stumble=never_k(),
+        cand_last_intro=never_k())
+
+
+def coverage(state: PeerState, member: int, gt: int, meta: int,
+             payload: int) -> torch.Tensor:
+    """f32: fraction of alive non-tracker peers whose store holds the
+    record (the convergence metric)."""
+    has = ((wide(state.store_gt) == gt) & (wide(state.store_member) == member)
+           & (state.store_meta.to(torch.int64) == meta)
+           & (wide(state.store_payload) == payload)).any(dim=1)
+    syncing = state.alive & ~state.is_tracker
+    num = (has & syncing).sum().to(torch.float32)
+    den = syncing.sum().clamp(min=1).to(torch.float32)
+    return num / den
+

@@ -1,0 +1,327 @@
+"""Build, bind and launch the hand-written Hopper kernels.
+
+The CUDA sources live in ``dispersy_tpu_torch/csrc``.  Each is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+under ``build/kernels/`` (git-ignored) at first use -- one ``nvcc`` per
+source, all started together -- and loaded with ``ctypes``.  The Triton
+kernel (:mod:`.intake_triton`) is imported only when it is launched.
+
+Every wrapper here takes CUDA tensors only: it checks device, dtype,
+shape and contiguity and raises :class:`KernelError` on anything its
+kernel does not take, allocates outputs with ``torch.empty``, launches on
+the current stream, raises if the launch reports an error, and adds one
+to its entry of :data:`LAUNCHES`.  The CPU side of each op is the plain
+version beside its wrapper in :mod:`dispersy_tpu_torch.ops`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from dispersy_tpu_torch.exceptions import KernelError
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent.parent / "build"
+SOURCES = ("deliver", "bloom", "store", "compact")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# One launch count per kernel, bumped where its wrapper launches it and
+# nowhere else.
+LAUNCHES = {"deliver": 0, "bloom_build": 0, "bloom_query": 0,
+            "store_insert": 0, "rank_compact_many": 0, "intake_checks": 0}
+_LIBS: dict = {}
+MAX_COLS = 8           # csrc/deliver.cu, csrc/compact.cu MAX_COLS
+DELIVER_MAX_INBOX = 2048   # csrc/deliver.cu SEL_HALF
+STORE_MAX_WIDTH = 256      # csrc/store.cu WMAX (M + B)
+BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise KernelError("nvcc not found (the CUDA toolkit is needed to "
+                          "build the kernels)")
+    return path
+
+
+def build(ptxas_report: bool = False) -> dict:
+    """Compile every CUDA source whose library is missing or older than
+    its sources, one ``nvcc`` each, all in parallel.  Returns
+    ``{source: seconds}``, and with ``ptxas_report`` also
+    ``{source + ".ptxas": text}`` (registers, shared memory, spills)."""
+    out_dir = BUILD / "kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    header = CSRC / "common.cuh"
+    procs = {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        src, lib = CSRC / f"{name}.cu", out_dir / f"lib{name}.so"
+        newest = max(src.stat().st_mtime, header.stat().st_mtime)
+        if (lib.exists() and lib.stat().st_mtime >= newest
+                and not ptxas_report):
+            continue
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib),
+               str(src)]
+        if ptxas_report:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    out = {}
+    failed = []
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        out[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{text}")
+        elif ptxas_report:
+            out[name + ".ptxas"] = text
+    if failed:
+        raise KernelError("\n".join(failed))
+    return out
+
+
+def _lib(name: str):
+    if name not in _LIBS:
+        path = BUILD / "kernels" / f"lib{name}.so"
+        if not path.exists():
+            build()
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return _LIBS[name]
+
+
+def _fn(lib: str, fn: str, n_args: int):
+    """A C entry point whose arguments are all 64-bit (pointers, counts
+    and the stream), returning a cudaError_t."""
+    f = getattr(_lib(lib), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * n_args
+    return f
+
+
+def _check(err: int, lib: str, what: str) -> None:
+    if err != 0:
+        msg = getattr(_lib(lib), "dk_error_string")
+        msg.restype = ctypes.c_char_p
+        msg.argtypes = [ctypes.c_longlong]
+        raise KernelError(f"{what}: CUDA error {err}: "
+                          f"{msg(err).decode(errors='replace')}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _req(t: torch.Tensor, name: str, dtypes, shape=None,
+         contiguous: bool = True) -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise KernelError(f"{name}: expected a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise KernelError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise KernelError(f"{name}: shape {tuple(t.shape)} != "
+                          f"{tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise KernelError(f"{name}: must be contiguous")
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * MAX_COLS)(*[t.data_ptr() for t in tensors])
+
+
+def _i64s(values) -> ctypes.Array:
+    return (ctypes.c_longlong * MAX_COLS)(*values)
+
+
+_COL_DTYPES = (torch.uint32, torch.uint8, torch.bool)
+
+
+# ---- K1: deliver ---------------------------------------------------------
+
+def deliver(dst, cols, valid, n_peers: int, inbox_size: int):
+    """Stable counting-sort delivery (csrc/deliver.cu).  Returns
+    ``(inbox, inbox_valid, n_dropped, edge_slot)``."""
+    e = dst.shape[0]
+    _req(dst, "deliver.dst", (torch.int32,), (e,))
+    _req(valid, "deliver.valid", (torch.bool,), (e,))
+    if not 1 <= len(cols) <= MAX_COLS:
+        raise KernelError(f"deliver: 1..{MAX_COLS} columns, got {len(cols)}")
+    for i, c in enumerate(cols):
+        _req(c, f"deliver.cols[{i}]", _COL_DTYPES)
+        if c.shape[0] != e:
+            raise KernelError(f"deliver.cols[{i}]: {c.shape[0]} rows != {e}")
+    if not 1 <= inbox_size <= DELIVER_MAX_INBOX:
+        raise KernelError(f"deliver: inbox_size {inbox_size} not in "
+                          f"[1, {DELIVER_MAX_INBOX}]")
+    if e >= 2 ** 31 or n_peers * inbox_size >= 2 ** 31 or n_peers < 1:
+        raise KernelError("deliver: edge or inbox index past int32")
+    dev = dst.device
+    q = inbox_size
+    inbox = [torch.empty((n_peers, q) + tuple(c.shape[1:]), dtype=c.dtype,
+                         device=dev) for c in cols]
+    inbox_valid = torch.empty((n_peers, q), dtype=torch.bool, device=dev)
+    n_dropped = torch.empty(n_peers, dtype=torch.int32, device=dev)
+    edge_slot = torch.empty(e, dtype=torch.int32, device=dev)
+    nb = -(-n_peers // 1024)
+    scratch = torch.empty(4 * n_peers + 1 + nb + e, dtype=torch.int32,
+                          device=dev)
+    row_bytes = [c.element_size() * math.prod(c.shape[1:]) for c in cols]
+    src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
+    err = _fn("deliver", "dk_deliver", 14)(
+        dst.data_ptr(), valid.data_ptr(), e, n_peers, q, len(cols),
+        ctypes.addressof(src), ctypes.addressof(out),
+        ctypes.addressof(nbytes), inbox_valid.data_ptr(),
+        n_dropped.data_ptr(), edge_slot.data_ptr(), scratch.data_ptr(),
+        _stream())
+    _check(err, "deliver", "deliver")
+    LAUNCHES["deliver"] += 1
+    return inbox, inbox_valid, n_dropped, edge_slot
+
+
+# ---- K2: bloom build / query ---------------------------------------------
+
+def _salt_ptr(salt) -> int | None:
+    if salt is None:
+        return None
+    _req(salt, "bloom.salt", (torch.uint32,), ())
+    return salt.data_ptr()
+
+
+def _bloom_bits(n_bits: int) -> None:
+    if n_bits <= 0 or n_bits % 32 or n_bits // 32 > BLOOM_MAX_WORDS:
+        raise KernelError(f"bloom: n_bits {n_bits} must be a positive "
+                          f"multiple of 32, at most {32 * BLOOM_MAX_WORDS}")
+
+
+def bloom_build(item_hashes, mask, n_bits: int, n_hashes: int, salt=None):
+    """Shared-memory bitset build, one warp per row (csrc/bloom.cu)."""
+    n, m = item_hashes.shape
+    _req(item_hashes, "bloom_build.item_hashes", (torch.uint32,))
+    _req(mask, "bloom_build.mask", (torch.bool,), (n, m))
+    _bloom_bits(n_bits)
+    words = torch.empty((n, n_bits // 32), dtype=torch.uint32,
+                        device=mask.device)
+    err = _fn("bloom", "dk_bloom_build", 9)(
+        item_hashes.data_ptr(), mask.data_ptr(), n, m, n_bits, n_hashes,
+        _salt_ptr(salt), words.data_ptr(), _stream())
+    _check(err, "bloom", "bloom_build")
+    LAUNCHES["bloom_build"] += 1
+    return words
+
+
+def bloom_query(words, item_hashes, n_bits: int, n_hashes: int, salt=None):
+    """All-k-bits membership test per item (csrc/bloom.cu); ``words`` may
+    be a row-strided [N, W] view."""
+    n, m = item_hashes.shape
+    _req(item_hashes, "bloom_query.item_hashes", (torch.uint32,))
+    _req(words, "bloom_query.words", (torch.uint32,), (n, n_bits // 32),
+         contiguous=False)
+    _bloom_bits(n_bits)
+    if words.stride(1) != 1:
+        raise KernelError("bloom_query.words: each row must be contiguous")
+    out = torch.empty((n, m), dtype=torch.bool, device=words.device)
+    err = _fn("bloom", "dk_bloom_query", 10)(
+        words.data_ptr(), words.stride(0), item_hashes.data_ptr(), n, m,
+        n_bits, n_hashes, _salt_ptr(salt), out.data_ptr(), _stream())
+    _check(err, "bloom", "bloom_query")
+    LAUNCHES["bloom_query"] += 1
+    return out
+
+
+# ---- K3: store insert ------------------------------------------------------
+
+_STORE_DT = (torch.uint32, torch.uint32, torch.uint8, torch.uint32,
+             torch.uint32, torch.uint8)
+
+
+def store_insert(store, new, new_mask):
+    """Per-row merge, dup kill and fused compaction (csrc/store.cu).
+    Returns the six [N, M] columns and the three i32[N] counts."""
+    n, m = store[0].shape
+    b = new[0].shape[1]
+    for i, (c, dt) in enumerate(zip(store, _STORE_DT)):
+        _req(c, f"store_insert.store[{i}]", (dt,), (n, m))
+    for i, (c, dt) in enumerate(zip(new, _STORE_DT)):
+        _req(c, f"store_insert.new[{i}]", (dt,), (n, b))
+    _req(new_mask, "store_insert.new_mask", (torch.bool,), (n, b))
+    if m < 1 or m + b > STORE_MAX_WIDTH:
+        raise KernelError(f"store_insert: M + B = {m + b} not in "
+                          f"[1, {STORE_MAX_WIDTH}]")
+    dev = new_mask.device
+    out = [torch.empty((n, m), dtype=dt, device=dev) for dt in _STORE_DT]
+    counts = torch.empty((3, n), dtype=torch.int32, device=dev)
+    err = _fn("store", "dk_store_insert", 24)(
+        *[c.data_ptr() for c in store], *[c.data_ptr() for c in new],
+        new_mask.data_ptr(), n, m, b, *[c.data_ptr() for c in out],
+        counts.data_ptr(), _stream())
+    _check(err, "store", "store_insert")
+    LAUNCHES["store_insert"] += 1
+    return (*out, counts[0], counts[1], counts[2])
+
+
+# ---- K4: rank compaction ---------------------------------------------------
+
+def rank_compact_many(cols_fills, slot, width: int):
+    """One-warp-per-row slot scatter of several columns (csrc/compact.cu)."""
+    n, w = slot.shape
+    _req(slot, "rank_compact_many.slot", (torch.int32,), (n, w))
+    if not 1 <= len(cols_fills) <= MAX_COLS:
+        raise KernelError(f"rank_compact_many: 1..{MAX_COLS} columns")
+    if width < 1:
+        raise KernelError("rank_compact_many: width must be >= 1")
+    srcs, outs, fills = [], [], []
+    for i, (c, fill) in enumerate(cols_fills):
+        _req(c, f"rank_compact_many.cols[{i}]", _COL_DTYPES, (n, w))
+        srcs.append(c)
+        outs.append(torch.empty((n, width), dtype=c.dtype, device=c.device))
+        bits = 8 * c.element_size()
+        fills.append(int(fill) & ((1 << bits) - 1))
+    # The host arrays stay referenced until the call returns.
+    src, dst = _ptrs(srcs), _ptrs(outs)
+    size, fill = _i64s([c.element_size() for c in srcs]), _i64s(fills)
+    err = _fn("compact", "dk_rank_compact", 10)(
+        slot.data_ptr(), n, w, width, len(srcs), ctypes.addressof(src),
+        ctypes.addressof(dst), ctypes.addressof(size),
+        ctypes.addressof(fill), _stream())
+    _check(err, "compact", "rank_compact_many")
+    LAUNCHES["rank_compact_many"] += 1
+    return outs
+
+
+# ---- K5: intake checks (Triton) ---------------------------------------------
+
+def intake_checks(store_gt, store_member, member, gt, ok):
+    """(in_store, dup_earlier) through the Triton kernel
+    (:mod:`.intake_triton`)."""
+    n, b = gt.shape
+    m = store_gt.shape[1]
+    _req(store_gt, "intake.store_gt", (torch.uint32,), (n, m))
+    _req(store_member, "intake.store_member", (torch.uint32,), (n, m))
+    _req(member, "intake.member", (torch.uint32,), (n, b))
+    _req(gt, "intake.gt", (torch.uint32,), (n, b))
+    _req(ok, "intake.ok", (torch.bool,), (n, b))
+    if m < 1 or b < 1:
+        raise KernelError("intake_checks: M and B must be >= 1")
+    from dispersy_tpu_torch.kernels import intake_triton
+    # Triton raises on a failed compile or launch; the stream query
+    # raises on an error the card has already reported (no wait).
+    try:
+        out = intake_triton.launch(store_gt, store_member, member, gt, ok)
+        torch.cuda.current_stream().query()
+    except Exception as exc:
+        raise KernelError(f"intake_checks: {exc}") from exc
+    LAUNCHES["intake_checks"] += 1
+    return out

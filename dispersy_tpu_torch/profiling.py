@@ -1,0 +1,116 @@
+"""The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``).
+
+Only the config builder is ported: the JAX module's cost-analysis
+helpers price XLA executables and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dispersy_tpu_torch.config import CommunityConfig
+from dispersy_tpu_torch.planes import StoreConfig
+
+
+def bench_config(n_peers: int, platform: str = "tpu") -> CommunityConfig:
+    """``bench.py``'s worker config at ``n_peers`` — the same values as the
+    JAX package's ``profiling.bench_config``.
+
+    ``platform="tpu"`` is the 1M-peer shape (M=48 store slots,
+    bloom_capacity=48 -> 480 filter bits = 15 words), ``"cpu"`` the 64k
+    rung (M=64).  Both carry the byte-diet store; the port's first slice
+    runs the legacy ring, ``bench_config(n).replace(store=StoreConfig())``.
+    """
+    diet = StoreConfig(staging=8, compact_every=12, aux_bits=16,
+                       cohorts=4, cand_bits=16)
+    if platform == "cpu":
+        return CommunityConfig(
+            n_peers=n_peers, n_trackers=max(2, min(4, n_peers // 1024)),
+            k_candidates=16, msg_capacity=64, bloom_capacity=64,
+            request_inbox=4,
+            tracker_inbox=max(64, min(256, n_peers // 64)),
+            response_budget=8, churn_rate=0.0, store=diet)
+    return CommunityConfig(
+        n_peers=n_peers, n_trackers=max(2, min(8, n_peers // 1024)),
+        k_candidates=16, msg_capacity=48, bloom_capacity=48,
+        request_inbox=4, tracker_inbox=max(64, min(1024, n_peers // 64)),
+        response_budget=8, churn_rate=0.0, store=diet)
+
+
+def slice_config(n_peers: int) -> CommunityConfig:
+    """The port's full-width slice: the 1M bench shape on the legacy ring
+    (``store=StoreConfig()``), every other plane at its defaults."""
+    return bench_config(n_peers, "tpu").replace(store=StoreConfig())
+
+
+# Every device function of the hand-written kernels (csrc/*.cu and
+# kernels/intake_triton.py) is named with this prefix, which gives the
+# profile's own-kernel share.
+OWN_KERNEL_PREFIX = "dk_"
+
+
+def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
+                   seed: int = 0, top: int = 15) -> dict:
+    """Trace ``rounds`` rounds of the slice's main path on the card with
+    ``torch.profiler``: wall time; device busy time (the sum of the
+    device-side events' times -- the round runs on one stream); the
+    share of it in the hand-written kernels; and the ``top`` entries by
+    device time, both as PyTorch ops (host-side events, each charged the
+    device time of its own kernels) and as device kernels.  Needs a CUDA
+    card; the run is driven as ``chip_smoke.py``'s main path is.
+    ``python -m dispersy_tpu_torch.profiling`` prints it as one JSON
+    line."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispersy_tpu_torch import engine
+    from dispersy_tpu_torch.state import init_state
+
+    cfg = slice_config(n_peers)
+    state = init_state(cfg, seed, device="cuda")
+    state = engine.seed_overlay(state, cfg, 8)
+    idx = torch.arange(n_peers, device=state.device)
+    state = engine.create_messages(state, cfg, idx % 64 == 0, 1, idx)
+    for _ in range(warmup):
+        state = engine.step(state, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state = engine.step(state, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total]
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def ms(evs):
+        return sum(e.self_device_time_total for e in evs) / 1e3 / rounds
+
+    def own(e):
+        name = e.key.removeprefix("(anonymous namespace)::")
+        return (name.split("(")[0].split("::")[-1]
+                .startswith(OWN_KERNEL_PREFIX))
+
+    def table(evs):
+        evs = sorted(evs, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:top]
+        return [{"name": e.key[:100], "device_ms_per_round": ms([e]),
+                 "calls_per_round": e.count / rounds} for e in evs]
+    busy = ms(device)
+    return {
+        "n_peers": n_peers, "rounds": rounds,
+        "wall_ms_per_round": wall_ms / rounds,
+        "device_busy_ms_per_round": busy,
+        "device_idle_share": 1.0 - busy * rounds / wall_ms,
+        "own_kernel_ms_per_round": ms([e for e in device if own(e)]),
+        "device_events_per_round": sum(e.count for e in device) / rounds,
+        "top_ops": table(ops), "top_kernels": table(device),
+    }
+
+
+if __name__ == "__main__":
+    import json
+    print(json.dumps(profile_rounds()))
