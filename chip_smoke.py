@@ -8,18 +8,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions; builds the CUDA kernels from ``dispersy_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, in parallel);
-2. kernels: every kernel of the slice's path (K1-K5) on random inputs
-   made with a numpy seed at the shapes the 1M-peer round gives it, held
-   bit for bit against its plain PyTorch version on the card, and timed
-   with CUDA events beside the plain version, the bytes bound and, where
-   one PyTorch call does the same work, that call;
-3. parity: a 4096-peer run of 20 rounds on the card through the kernels
-   and on the CPU through the plain versions, equal on every state leaf
-   after every round;
-4. main path: the 1M-peer legacy-store round (``bench_config(1 << 20)``
-   on the legacy ring) through the public entry points -- init_state,
-   seed_overlay(8), one record authored by every 64th peer, 3 warm-up and
-   10 timed rounds -- with every kernel's launch count read after it.
+2. kernels: every kernel of the two paths (K1-K7) on random inputs made
+   with a numpy seed at the shapes the 1M-peer rounds give it -- the
+   legacy ring's shapes, then the byte-diet round's (u16 aux columns,
+   per-row Bloom salts, the cohort block, the staging buffer) -- held bit
+   for bit against its plain PyTorch version on the card, and timed with
+   CUDA events beside the plain version, the bytes bound and, where one
+   PyTorch call does the same work, that call;
+3. parity: 4096-peer runs on the card through the kernels and on the CPU
+   through the plain versions, equal on every state leaf after every
+   round: the legacy ring for 20 rounds, the byte-diet
+   ``bench_config(4096)`` for 24 rounds (two compaction windows);
+4. main paths through the public entry points -- init_state,
+   seed_overlay(8), one record authored by every 64th peer, warm-up and
+   timed rounds -- each with every kernel's launch count read after it:
+   the byte-diet round at ``bench_config(1 << 20)`` exactly (3 + 24
+   rounds, so every cohort compacts twice; ms per round overall, quiet
+   and sync), then the legacy ring at the same shape (3 + 5 rounds).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -39,11 +44,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (on-chip guide)
 SCALAR_OPS_PER_S = 67e12       # H100 float32 outside the tensor cores
-N_PEERS = 1 << 20              # the slice's full width: bench_config(1 << 20)
-PARITY_PEERS, PARITY_ROUNDS = 4096, 20
-WARMUP, ROUNDS = 3, 10
+N_PEERS = 1 << 20              # the full width: bench_config(1 << 20)
+PARITY_PEERS, PARITY_ROUNDS, DIET_PARITY_ROUNDS = 4096, 20, 24
+WARMUP, ROUNDS = 3, 5          # the legacy main path
+DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
 SEED = 0
+# The kernels each main path must launch (kernels.LAUNCHES keys).
+LEGACY_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
+               "rank_compact_many", "intake_checks")
+DIET_PATH = ("deliver", "bloom_build", "bloom_query", "digest_update",
+             "store_insert", "rank_compact_many", "store_stage",
+             "dup_earlier")
 
 
 def fail(msg: str) -> None:
@@ -81,16 +93,17 @@ def max_abs_err(got, want) -> int:
     """Largest absolute difference over paired tensors (integers and
     bools compared as int64); a shape or dtype mismatch fails."""
     import torch
+    from dispersy_tpu_torch.u32 import wide
     worst = 0
     for g, w in zip(got, want, strict=True):
         if g.shape != w.shape or g.dtype != w.dtype:
             fail(f"shape/dtype {g.dtype}{list(g.shape)} vs "
                  f"{w.dtype}{list(w.shape)}")
-        gi = g.view(torch.int32) if g.dtype == torch.uint32 else g
-        wi = w.view(torch.int32) if w.dtype == torch.uint32 else w
-        if g.dtype == torch.uint32:
-            gi, wi = gi.long() & 0xFFFFFFFF, wi.long() & 0xFFFFFFFF
-        diff = (gi.long() - wi.long()).abs()
+        if g.dtype in (torch.uint32, torch.uint16):
+            gi, wi = wide(g), wide(w)
+        else:
+            gi, wi = g.long(), w.long()
+        diff = (gi - wi).abs()
         worst = max(worst, int(diff.max()) if diff.numel() else 0)
     return worst
 
@@ -103,7 +116,7 @@ def nbytes(*ts) -> int:
 
 class Inputs:
     """Random inputs made with a numpy seed, on the card, and the shapes
-    of the 1M-peer round (``cfg`` is the slice config)."""
+    of the 1M-peer round (``cfg`` is the path's config)."""
 
     def __init__(self, cfg, seed: int):
         import numpy as np
@@ -121,6 +134,11 @@ class Inputs:
         a = self.np.asarray(a).astype(self.np.uint32).view(self.np.int32)
         return self.torch.from_numpy(a).to(self.dev).view(self.torch.uint32)
 
+    def u16(self, *shape, hi=1 << 16):
+        a = self.rs.integers(0, hi, size=shape).astype(self.np.uint16)
+        return self.torch.from_numpy(a.view(self.np.int16)).to(
+            self.dev).view(self.torch.uint16)
+
     def u8(self, *shape, hi=256):
         a = self.rs.integers(0, hi, size=shape).astype(self.np.uint8)
         return self.torch.from_numpy(a).to(self.dev)
@@ -130,9 +148,11 @@ class Inputs:
 
 
 def timed_entry(name, route, source, replaces, got, want, kernel_fn,
-                plain_fn, bytes_moved, reps, ops=0, library_fn=None) -> dict:
+                plain_fn, bytes_moved, reps, ops=0, library_fn=None,
+                kernel=None) -> dict:
     """Hold a kernel's outputs against its plain version's, then time
-    kernel, plain version and library call; one kernels-JSON row."""
+    kernel, plain version and library call; one kernels-JSON row.
+    ``kernel`` is the row's ``kernels.LAUNCHES`` key (default ``name``)."""
     err = max_abs_err(got, want)
     if err != 0:
         fail(f"kernel {name} disagrees with its plain version "
@@ -146,7 +166,7 @@ def timed_entry(name, route, source, replaces, got, want, kernel_fn,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms}
+           "library_ms": lib_ms, "_kernel": kernel or name}
     print(f"kernel {name}: mismatches 0, kernel_ms {ms:.4f}, plain_ms "
           f"{plain_ms:.4f}, bound_ms {row['bound_ms']:.4f} "
           f"({row['bound_by']}), library_ms {lib_ms}", flush=True)
@@ -165,15 +185,8 @@ def check_deliver(x: Inputs, reps: int) -> list:
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
 
-    def case(e, n_dst, q, cols, p_valid, lo=-1):
-        dst = torch.from_numpy(x.rs.integers(lo, n_dst + 1, size=e)
-                               .astype(x.np.int32)).to(x.dev)
-        valid = x.flags(p_valid, e)
-        inb, inb_valid, dropped, slot = kernels.deliver(dst, cols, valid,
-                                                        n_dst, q)
-        want = inbox.deliver_plain(dst, cols, valid, n_dst, q)
-        return (dst, valid, [*inb, inb_valid, dropped, slot],
-                [*want.inbox, *want[1:]])
+    def case(*args, **kw):
+        return deliver_case(x, *args, **kw)
 
     e = n * cfg.forward_buffer * cfg.forward_fanout
     q = cfg.push_inbox
@@ -200,6 +213,21 @@ def check_deliver(x: Inputs, reps: int) -> list:
         lambda: kernels.deliver(dst, cols, valid, n, q),
         lambda: inbox.deliver_plain(dst, cols, valid, n, q), moved, reps,
         library_fn=lambda: torch.sort(key, stable=True))]
+
+
+def deliver_case(x: Inputs, e, n_dst, q, cols, p_valid, lo=-1):
+    """K1 and its plain version on one random edge list: ``(dst, valid,
+    kernel outputs, plain outputs)``."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    dst = x.torch.from_numpy(x.rs.integers(lo, n_dst + 1, size=e)
+                             .astype(x.np.int32)).to(x.dev)
+    valid = x.flags(p_valid, e)
+    inb, inb_valid, dropped, slot = kernels.deliver(dst, cols, valid, n_dst,
+                                                    q)
+    want = inbox.deliver_plain(dst, cols, valid, n_dst, q)
+    return (dst, valid, [*inb, inb_valid, dropped, slot],
+            [*want.inbox, *want[1:]])
 
 
 def check_bloom(x: Inputs, reps: int) -> list:
@@ -359,12 +387,270 @@ def check_intake(x: Inputs, reps: int) -> list:
 KERNEL_CHECKS = (check_deliver, check_bloom, check_store, check_compact,
                  check_intake)
 
+# ---- phase 2, the byte-diet round's call shapes ------------------------------
 
-def kernel_phase(cfg, seed: int, reps: int) -> list:
+def check_diet_deliver(x: Inputs, reps: int) -> list:
+    """K1 on the diet's push blast, whose fifth column is the forward
+    buffer's u16 aux (timed), and on the quiet round's 2-column request
+    (the staggered sync round's too)."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    from dispersy_tpu_torch.u32 import narrow
+    cfg, n = x.cfg, x.cfg.n_peers
+    e = n * cfg.forward_buffer * cfg.forward_fanout
+    q = cfg.push_inbox
+    cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u16(e)]
+    dst, valid, got, want = deliver_case(x, e, n, q, cols, 0.9)
+    kept = int((got[-1] >= 0).sum())
+    req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
+    _, _, rg, rw = deliver_case(x, n, n, cfg.request_inbox, req, 0.9)
+    row_b = 4 * 3 + 1 + 2
+    moved = 5 * e + kept * row_b + n * q * (row_b + 1) + 4 * n + 4 * e
+    ok = valid & (dst >= 0) & (dst < n)
+    key = torch.where(ok, dst.long(), n) * e + torch.arange(e, device=x.dev)
+    return [timed_entry(
+        "deliver_diet_push_u16", "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
+        "dispersy_tpu/ops/inbox.py:79", got + rg, want + rw,
+        lambda: kernels.deliver(dst, cols, valid, n, q),
+        lambda: inbox.deliver_plain(dst, cols, valid, n, q), moved, reps,
+        library_fn=lambda: torch.sort(key, stable=True), kernel="deliver")]
+
+
+def check_diet_bloom(x: Inputs, reps: int) -> list:
+    """K6 digest_update on the landed arrivals [N, 24] with per-peer
+    epoch salts; K2's query of the same items against the digest (the
+    freshness test, per-row salt), its serve query of a cohort block
+    [N/4, 48] against a strided view of the digest (one salt), and the
+    digest rebuild over the compacted block [N/4, 48]."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import bloom
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.u32 import narrow
+    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
+    bits, k, w = cfg.bloom_bits, cfg.bloom_hashes, cfg.bloom_words
+    b = cfg.response_budget + cfg.push_inbox
+    coh = cfg.store.cohorts
+    blk = n // coh
+    dig = narrow((x.u32(n, w).view(torch.int32).long()
+                  & x.u32(n, w).view(torch.int32).long()))
+    ep = x.u32(n, hi=4)                          # per-peer epochs
+    h = x.u32(n, b)
+    landed = x.flags(0.4, n, b)
+    n_set = int(landed.sum())
+    got = kernels.digest_update(dig, h, landed, bits, k, ep)
+    rows = [timed_entry(
+        "digest_update", "cuda", "dispersy_tpu_torch/csrc/bloom.cu",
+        "dispersy_tpu/ops/bloom.py:234", [got],
+        [bloom.digest_update_plain(dig, h, landed, bits, k, ep)],
+        lambda: kernels.digest_update(dig, h, landed, bits, k, ep),
+        lambda: bloom.digest_update_plain(dig, h, landed, bits, k, ep),
+        8 * n * w + nbytes(landed) + 4 * n_set + 4 * n, reps,
+        ops=n_set * k * 12)]
+    qh = torch.where(x.flags(0.5, n, b), h.view(torch.int32),
+                     x.u32(n, b).view(torch.int32)).view(torch.uint32)
+    fresh = kernels.bloom_query(got, qh, bits, k, ep)
+    if not bool(fresh.any()) or bool(fresh.all()):
+        fail("bloom_query (row salt) inputs give a constant answer")
+    rows.append(timed_entry(
+        "bloom_query_diet_fresh", "cuda", "dispersy_tpu_torch/csrc/bloom.cu",
+        "dispersy_tpu/ops/bloom.py:277", [fresh],
+        [bloom.bloom_query_plain(got, qh, bits, k, ep)],
+        lambda: kernels.bloom_query(got, qh, bits, k, ep),
+        lambda: bloom.bloom_query_plain(got, qh, bits, k, ep),
+        4 * n * w + nbytes(qh) + 4 * n + n * b, reps, ops=n * b * k * 12,
+        kernel="bloom_query"))
+    salt = narrow(torch.tensor(0xFFFFFFFF, device=x.dev))
+    dig_blk = st.cohort_take(got, 1, coh)        # row stride coh * w
+    rec = x.u32(blk, m)
+    rec = torch.where(x.flags(0.5, blk, m), rec.view(torch.int32),
+                      qh[:blk, :1].view(torch.int32)).view(torch.uint32)
+    serve = kernels.bloom_query(dig_blk, rec, bits, k, salt)
+    rows.append(timed_entry(
+        "bloom_query_diet_serve", "cuda", "dispersy_tpu_torch/csrc/bloom.cu",
+        "dispersy_tpu/ops/bloom.py:277", [serve],
+        [bloom.bloom_query_plain(dig_blk, rec, bits, k, salt)],
+        lambda: kernels.bloom_query(dig_blk, rec, bits, k, salt),
+        lambda: bloom.bloom_query_plain(dig_blk, rec, bits, k, salt),
+        4 * blk * w + nbytes(rec) + blk * m, reps, ops=blk * m * k * 12,
+        kernel="bloom_query"))
+    in_sl = x.flags(0.7, blk, m)
+    n_sl = int(in_sl.sum())
+    rows.append(timed_entry(
+        "bloom_build_diet_rebuild", "cuda", "dispersy_tpu_torch/csrc/bloom.cu",
+        "dispersy_tpu/ops/bloom.py:196",
+        [kernels.bloom_build(rec, in_sl, bits, k, salt)],
+        [bloom.bloom_build_plain(rec, in_sl, bits, k, salt)],
+        lambda: kernels.bloom_build(rec, in_sl, bits, k, salt),
+        lambda: bloom.bloom_build_plain(rec, in_sl, bits, k, salt),
+        nbytes(in_sl) + 4 * n_sl + 4 * blk * w, reps, ops=n_sl * k * 12,
+        kernel="bloom_build"))
+    return rows
+
+
+def diet_cols(x: Inputs, rows: int, width: int, prefix: bool):
+    """Record columns with a u16 aux: a sorted ring (``prefix`` False) or
+    a staging buffer with a valid prefix of random length."""
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.u32 import cast
+    np = x.np
+    g = x.rs.integers(1, 200, size=(rows, width))
+    mem = x.rs.integers(0, 6, size=(rows, width))
+    if not prefix:
+        order = np.lexsort((mem, g), axis=1)
+        g = np.take_along_axis(g, order, 1)
+        mem = np.take_along_axis(mem, order, 1)
+    live = (np.arange(width)[None, :]
+            < x.rs.integers(0, width + 1, size=rows)[:, None])
+    tl = x.torch.from_numpy(live).to(x.dev)
+    empty = 0xFFFFFFFF
+    return st.StoreCols(
+        gt=x.from_u32(np.where(live, g, empty)),
+        member=x.from_u32(np.where(live, mem, empty)),
+        meta=x.torch.where(tl, x.u8(rows, width, hi=4), 255).to(
+            x.torch.uint8),
+        payload=x.from_u32(np.where(live, x.rs.integers(
+            0, 1 << 32, size=(rows, width), dtype=np.uint64), empty)),
+        aux=cast(x.torch.where(tl, x.u32(rows, width, hi=3).view(
+            x.torch.int32), 0).view(x.torch.uint32), x.torch.uint16),
+        flags=x.torch.where(tl, x.u8(rows, width, hi=2), 0).to(
+            x.torch.uint8))
+
+
+def check_diet_stage(x: Inputs, reps: int) -> list:
+    """K7 store_stage: the [N, 24] intake batch (u32 aux, narrowed in the
+    kernel) into the [N, 8] staging buffer.  Its bytes: the mask, the
+    staging row, the columns of the arrivals that land, every output."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    cfg, n = x.cfg, x.cfg.n_peers
+    s = cfg.store.staging
+    b = cfg.response_budget + cfg.push_inbox
+    staging = diet_cols(x, n, s, prefix=True)
+    batch = st.StoreCols(
+        gt=x.u32(n, b, hi=200), member=x.u32(n, b, hi=6),
+        meta=x.u8(n, b, hi=4), payload=x.u32(n, b), aux=x.u32(n, b),
+        flags=x.u8(n, b, hi=2))
+    mask = x.flags(0.25, n, b)
+    got = list(kernels.store_stage(staging, batch, mask))
+    cast_b = st.as_store_dtypes(batch, staging)
+    want = st.store_stage_plain(staging, cast_b, mask)
+    if not bool(want.n_dropped.any()):
+        fail("store_stage inputs never overflow")
+    landed = int(got[6].sum())
+    slot_b = 4 * 3 + 1 + 2 + 1
+    moved = (nbytes(mask) + n * s * slot_b + landed * (slot_b + 2)
+             + nbytes(*got))
+    return [timed_entry(
+        "store_stage", "cuda", "dispersy_tpu_torch/csrc/stage.cu",
+        "dispersy_tpu/ops/store.py:510", got, [*want.staging, *want[1:]],
+        lambda: kernels.store_stage(staging, batch, mask),
+        lambda: st.store_stage_plain(staging, cast_b, mask), moved, reps)]
+
+
+def check_diet_store(x: Inputs, reps: int) -> list:
+    """K3 at the staggered compaction: a cohort block's [N/4, 48] ring
+    and its [N/4, 8] staging buffer, u16 aux."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
+    blk = n // cfg.store.cohorts
+    ring = diet_cols(x, blk, m, prefix=False)
+    sta = diet_cols(x, blk, cfg.store.staging, prefix=True)
+    mask = sta.valid
+    want = st.store_insert_plain(ring, sta, mask)
+    got = list(kernels.store_insert(ring, sta, mask))
+    kept = int((got[0].view(x.torch.int32) != -1).sum())
+    moved = (8 * blk * m + nbytes(mask) + 8 * int(mask.sum()) + 8 * kept
+             + nbytes(*got))
+    return [timed_entry(
+        "store_insert_diet_compact", "cuda", "dispersy_tpu_torch/csrc/store.cu",
+        "dispersy_tpu/ops/store.py:265", got,
+        [*want.store, want.n_inserted, want.n_dropped, want.n_evicted],
+        lambda: kernels.store_insert(ring, sta, mask),
+        lambda: st.store_insert_plain(ring, sta, mask), moved, reps,
+        kernel="store_insert")]
+
+
+def check_diet_compact(x: Inputs, reps: int) -> list:
+    """K4 at the staggered serve's outbox (a cohort block's [N/4, 48]
+    gathered rings to width 8, six columns with the u16 aux), timed; and
+    at the forward buffer ([N, 24] to width 4, the aux at u16)."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
+    blk = n // cfg.store.cohorts
+    ring = diet_cols(x, blk, m, prefix=False)
+
+    def slots(p, rows, w, width):
+        keep = x.flags(p, rows, w)
+        rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+        return keep, torch.where(keep & (rank < width), rank,
+                                 width).to(torch.int32)
+
+    b = cfg.response_budget
+    missing, slot = slots(0.3, blk, m, b)
+    cols = [(ring.gt, 0xFFFFFFFF), (ring.member, 0xFFFFFFFF),
+            (ring.meta, 0xFF), (ring.payload, 0xFFFFFFFF), (ring.aux, 0),
+            (missing, False)]
+    got = kernels.rank_compact_many(cols, slot, b)
+    fb = cfg.forward_buffer
+    bw = cfg.response_budget + cfg.push_inbox
+    _, fslot = slots(0.5, n, bw, fb)
+    fcols = [(x.u32(n, bw), 0xFFFFFFFF), (x.u32(n, bw), 0xFFFFFFFF),
+             (x.u8(n, bw), 0xFF), (x.u32(n, bw), 0xFFFFFFFF),
+             (x.u16(n, bw), 0xFFFF)]
+    fgot = kernels.rank_compact_many(fcols, fslot, fb)
+    kept = int((slot < b).sum())
+    moved = (nbytes(slot) + kept * sum(c.element_size() for c, _ in cols)
+             + nbytes(*got))
+    return [timed_entry(
+        "rank_compact_many_diet_serve", "cuda",
+        "dispersy_tpu_torch/csrc/compact.cu", "dispersy_tpu/ops/store.py:140",
+        got + fgot,
+        st.rank_compact_many_plain(cols, slot, b)
+        + st.rank_compact_many_plain(fcols, fslot, fb),
+        lambda: kernels.rank_compact_many(cols, slot, b),
+        lambda: st.rank_compact_many_plain(cols, slot, b), moved, reps,
+        kernel="rank_compact_many")]
+
+
+def check_diet_intake(x: Inputs, reps: int) -> list:
+    """K5 without a store operand: the in-batch dedup of the [N, 24]
+    intake batch (the digest query does the freshness test)."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import intake
+    cfg, n = x.cfg, x.cfg.n_peers
+    b = cfg.response_budget + cfg.push_inbox
+    member, gt = x.u32(n, b, hi=4), x.u32(n, b, hi=12)
+    ok = x.flags(0.8, n, b)
+    got = kernels.dup_earlier(member, gt, ok)
+    if not bool(got.any()):
+        fail("dup_earlier inputs never hit")
+    return [timed_entry(
+        "dup_earlier", "triton", "dispersy_tpu_torch/kernels/intake_triton.py",
+        "dispersy_tpu/ops/intake.py:137", [got],
+        [intake.dup_earlier_plain(member, gt, ok)],
+        lambda: kernels.dup_earlier(member, gt, ok),
+        lambda: intake.dup_earlier_plain(member, gt, ok),
+        nbytes(member, gt, ok) + n * b, reps, ops=2 * n * b * b)]
+
+
+DIET_KERNEL_CHECKS = (check_diet_deliver, check_diet_bloom, check_diet_stage,
+                      check_diet_store, check_diet_compact, check_diet_intake)
+
+
+def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
+    """Run ``checks`` on one config's shapes; each row notes the main
+    ``path`` whose launch counts it takes."""
     x = Inputs(cfg, seed)
     rows = []
-    for check in KERNEL_CHECKS:
-        rows += check(x, reps)
+    for check in checks:
+        for row in check(x, reps):
+            row["_path"] = path
+            rows.append(row)
         x.torch.cuda.synchronize()
     return rows
 
@@ -390,17 +676,22 @@ def parity_phase(cfg, seed: int, rounds: int) -> None:
     for rnd in range(rounds):
         gpu, cpu = engine.step(gpu, cfg), engine.step(cpu, cfg)
         assert_states_equal(gpu, cpu, f"{cfg.n_peers} peers, round {rnd}")
-    print(f"parity: {cfg.n_peers} peers, {rounds} rounds, card == cpu on "
+    print(f"parity: {cfg.n_peers} peers, {cfg.store}, {rounds} rounds, "
+          f"card == cpu on "
           f"every leaf after every round "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-# ---- phase 4: the main path at full width ----------------------------------
+# ---- phase 4: the main paths at full width -------------------------------
 
-def main_phase(cfg, seed: int, warmup: int, rounds: int) -> dict:
+def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
+               rounds: int) -> dict:
+    """Drive one main path through the public entry points with the
+    launch counts set to 0 just before and read just after."""
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
+    from dispersy_tpu_torch.storediet import phase_of
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -416,45 +707,60 @@ def main_phase(cfg, seed: int, warmup: int, rounds: int) -> dict:
     for _ in range(warmup):
         state = engine.step(state, cfg)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
+    times, phases = [], []
+    for rnd in range(warmup, warmup + rounds):
         a = time.perf_counter()
         state = engine.step(state, cfg)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - a)
+        phases.append(phase_of(cfg, rnd))
         cov.append(float(engine.coverage(state, 64, 2, 1, 64)))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     # What comes out: every leaf finite and of its schema shape, rings
-    # sorted with holes last, the record spreading.
+    # sorted with holes last, staging buffers a valid prefix, the record
+    # spreading.
     for name, leaf in state.items():
         if name == "stats" or not isinstance(leaf, torch.Tensor):
             continue
         if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
-            fail(f"main path: leaf {name} holds non-finite values")
+            fail(f"{path} main path: leaf {name} holds non-finite values")
     if state.store_gt.shape != (n, cfg.msg_capacity):
-        fail(f"main path: store_gt shape {tuple(state.store_gt.shape)}")
+        fail(f"{path} main path: store_gt shape "
+             f"{tuple(state.store_gt.shape)}")
     g = state.store_gt.view(torch.int32).long() & 0xFFFFFFFF
     if bool((g[:, 1:] < g[:, :-1]).any()):
-        fail("main path: a store ring is out of order")
+        fail(f"{path} main path: a store ring is out of order")
+    hole = state.sta_gt.view(torch.int32) == -1
+    if bool((hole[:, :-1] & ~hole[:, 1:]).any()):
+        fail(f"{path} main path: a staging buffer has a hole before a record")
     if not cov[-1] > cov[0]:
-        fail(f"main path: coverage did not grow ({cov[0]} -> {cov[-1]})")
+        fail(f"{path} main path: coverage did not grow "
+             f"({cov[0]} -> {cov[-1]})")
     snap = metrics.snapshot(state, cfg)
     if snap["walk_success"] == 0 or snap["msgs_stored"] == 0:
-        fail(f"main path: nothing walked or stored: {snap}")
-    missing = [k for k, v in launches.items() if v == 0]
+        fail(f"{path} main path: nothing walked or stored: {snap}")
+    missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
-        fail(f"main path never launched {missing}: {launches}")
-    ms = statistics.median(times) * 1e3
-    out = {"n_peers": n, "setup_s": setup_s, "warmup_rounds": warmup,
+        fail(f"{path} main path never launched {missing}: {launches}")
+
+    def med(kind):
+        sel = [t for t, ph in zip(times, phases) if kind in (None, ph)]
+        return statistics.median(sel) * 1e3 if sel else None
+    ms = med(None)
+    out = {"path": path, "n_peers": n, "store": str(cfg.store),
+           "setup_s": setup_s, "warmup_rounds": warmup,
            "timed_rounds": rounds, "ms_per_round": ms,
-           "rounds_per_s": 1e3 / ms, "round_ms": [x * 1e3 for x in times],
-           "peak_mem_gib": peak / 2 ** 30, "coverage": cov,
+           "ms_per_quiet_round": med("quiet"),
+           "ms_per_sync_round": med("sync"),
+           "rounds_per_s": 1e3 / ms, "round_ms": [t * 1e3 for t in times],
+           "phases": phases, "peak_mem_gib": peak / 2 ** 30,
+           "coverage": cov, "store_fill": snap["store_fill"],
            "walk_success_rate": snap["walk_success_rate"],
            "launches": launches, "launches_per_round": {
                k: v / (warmup + rounds) for k, v in launches.items()}}
-    print("main: " + json.dumps(out), flush=True)
+    print(f"main {path}: " + json.dumps(out), flush=True)
     return out
 
 
@@ -470,7 +776,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.profiling import slice_config
+    from dispersy_tpu_torch.profiling import bench_config, slice_config
 
     t_start = time.perf_counter()
     card = card_line()
@@ -489,14 +795,21 @@ def main() -> int:
     print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()
                                 if not k.endswith(".ptxas")), flush=True)
 
-    cfg = slice_config(N_PEERS)
-    rows = kernel_phase(cfg, SEED, REPS)
+    legacy, diet = slice_config(N_PEERS), bench_config(N_PEERS)
+    rows = (kernel_phase(legacy, KERNEL_CHECKS, "legacy", SEED, REPS)
+            + kernel_phase(diet, DIET_KERNEL_CHECKS, "diet", SEED, REPS))
     print(f"kernels checked ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
     parity_phase(slice_config(PARITY_PEERS), SEED, PARITY_ROUNDS)
-    main_out = main_phase(cfg, SEED, WARMUP, ROUNDS)
+    parity_phase(bench_config(PARITY_PEERS), SEED, DIET_PARITY_ROUNDS)
+    mains = {
+        "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
+                           DIET_ROUNDS),
+        "legacy": main_phase(legacy, "legacy", LEGACY_PATH, SEED, WARMUP,
+                             ROUNDS)}
     for row in rows:
-        row["launches"] = main_out["launches"][row["name"]]
+        row["launches"] = mains[row.pop("_path")]["launches"][
+            row.pop("_kernel")]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

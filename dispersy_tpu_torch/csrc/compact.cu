@@ -12,7 +12,7 @@
 // Design.  One warp per row.  The lanes first write the fill value into
 // every output slot of the row, synchronise the warp, then walk the
 // row's W entries and copy each live entry of every column to its slot.
-// Columns of mixed element sizes (u32, u8, bool) ride one launch:
+// Columns of mixed element sizes (u32, u16, u8, bool) ride one launch:
 // the kernel copies by element size, so one pass over the slot map serves
 // all of them.
 #include "common.cuh"
@@ -25,7 +25,7 @@ constexpr int WARPS = 8;
 struct CCols {
   const uint8_t* src[MAX_COLS];
   uint8_t* dst[MAX_COLS];
-  int size[MAX_COLS];       // element bytes: 1 (u8, bool) or 4 (u32)
+  int size[MAX_COLS];       // element bytes: 1 (u8, bool), 2 (u16), 4 (u32)
   uint32_t fill[MAX_COLS];  // fill bits, low `size` bytes used
   int k;
 };
@@ -34,13 +34,17 @@ __device__ __forceinline__ void store_elem(uint8_t* base, int size,
                                            long long at, uint32_t v) {
   if (size == 4)
     reinterpret_cast<uint32_t*>(base)[at] = v;
+  else if (size == 2)
+    reinterpret_cast<uint16_t*>(base)[at] = static_cast<uint16_t>(v);
   else
     base[at] = static_cast<uint8_t>(v);
 }
 
 __device__ __forceinline__ uint32_t load_elem(const uint8_t* base, int size,
                                               long long at) {
-  return size == 4 ? reinterpret_cast<const uint32_t*>(base)[at] : base[at];
+  if (size == 4) return reinterpret_cast<const uint32_t*>(base)[at];
+  if (size == 2) return reinterpret_cast<const uint16_t*>(base)[at];
+  return base[at];
 }
 
 __global__ void dk_compact_kernel(const int32_t* slot, long long n, int w,
@@ -71,7 +75,8 @@ DK_EXPORT int dk_rank_compact(const int32_t* slot, long long n, long long w,
                               const long long* fill, cudaStream_t stream) {
   if (k < 1 || k > MAX_COLS || width < 1) return cudaErrorInvalidValue;
   for (int j = 0; j < k; ++j)
-    if (size[j] != 1 && size[j] != 4) return cudaErrorInvalidValue;
+    if (size[j] != 1 && size[j] != 2 && size[j] != 4)
+      return cudaErrorInvalidValue;
   CCols c;
   c.k = static_cast<int>(k);
   for (int j = 0; j < MAX_COLS; ++j) {

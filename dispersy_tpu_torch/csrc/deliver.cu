@@ -56,6 +56,10 @@ __device__ __forceinline__ void copy_row(const Cols& c, long long src_row,
       for (long long b = 0; b < nb; b += 4)
         *reinterpret_cast<uint32_t*>(d + b) =
             *reinterpret_cast<const uint32_t*>(s + b);
+    } else if ((nb & 1) == 0) {  // u16 columns
+      for (long long b = 0; b < nb; b += 2)
+        *reinterpret_cast<uint16_t*>(d + b) =
+            *reinterpret_cast<const uint16_t*>(s + b);
     } else {
       for (long long b = 0; b < nb; ++b) d[b] = s[b];
     }

@@ -7,11 +7,12 @@
 // (`_merge_ordered` :425, picked on the TPU above M + B = 128) and its
 // sort form (`_sort_ordered` :385), followed by the rank compaction of
 // `rank_compact_many` (:140).  LastSync `history` is not taken: the
-// wrapper raises for it.
+// wrapper raises for it.  The aux column is u32, or u16 under the
+// byte-diet store's aux_bits=16 (store, batch and output alike).
 //
 // Bound on the H100: bytes.  The function reads six [N, M] columns (18 B
-// per slot), six [N, B] columns and the mask, and writes six [N, M]
-// columns and three counts per row.
+// per slot, 16 B with a u16 aux), six [N, B] columns and the mask, and
+// writes six [N, M] columns and three counts per row.
 //
 // Design.  One warp per peer row.  The row's (gt, member) keys, masked
 // batch entries replaced by EMPTY, go to shared memory; each lane ranks
@@ -36,7 +37,7 @@ struct Cols6 {
   const uint32_t* member;
   const uint8_t* meta;
   const uint32_t* payload;
-  const uint32_t* aux;
+  const void* aux;  // u32, or u16 when aux2
   const uint8_t* flags;
 };
 
@@ -45,17 +46,23 @@ struct Out6 {
   uint32_t* member;
   uint8_t* meta;
   uint32_t* payload;
-  uint32_t* aux;
+  void* aux;
   uint8_t* flags;
 };
 
 __device__ __forceinline__ void put(const Out6& o, long long at,
-                                    const Cols6& c, long long from) {
+                                    const Cols6& c, long long from,
+                                    bool aux2) {
   o.gt[at] = c.gt[from];
   o.member[at] = c.member[from];
   o.meta[at] = c.meta[from];
   o.payload[at] = c.payload[from];
-  o.aux[at] = c.aux[from];
+  if (aux2)
+    static_cast<uint16_t*>(o.aux)[at] =
+        static_cast<const uint16_t*>(c.aux)[from];
+  else
+    static_cast<uint32_t*>(o.aux)[at] =
+        static_cast<const uint32_t*>(c.aux)[from];
   o.flags[at] = c.flags[from];
 }
 
@@ -65,8 +72,9 @@ __device__ __forceinline__ int warp_sum(int v) {
 }
 
 __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
-                                 long long n, int m, int b, Out6 o,
-                                 int32_t* n_inserted, int32_t* n_dropped,
+                                 long long n, int m, int b, bool aux2,
+                                 Out6 o, int32_t* n_inserted,
+                                 int32_t* n_dropped,
                                  int32_t* n_evicted) {
   __shared__ uint32_t kg[WARPS][WMAX];
   __shared__ uint32_t km[WARPS][WMAX];
@@ -125,10 +133,10 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
     const int r = kept + __popc(bal & ((1u << lane) - 1u));
     if (keep && r < m) {
       if (i < m) {
-        put(o, row * m + r, s, row * m + i);
+        put(o, row * m + r, s, row * m + i, aux2);
         ++old_kept;
       } else {
-        put(o, row * m + r, bt, row * b + (i - m));
+        put(o, row * m + r, bt, row * b + (i - m), aux2);
         ++ins;
       }
     }
@@ -141,7 +149,10 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
     o.member[at] = dk::EMPTY_U32;
     o.meta[at] = 0xFF;
     o.payload[at] = dk::EMPTY_U32;
-    o.aux[at] = 0u;
+    if (aux2)
+      static_cast<uint16_t*>(o.aux)[at] = 0u;
+    else
+      static_cast<uint32_t*>(o.aux)[at] = 0u;
     o.flags[at] = 0;
   }
   before = warp_sum(before);
@@ -157,20 +168,23 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
 
 }  // namespace
 
+// aux_size: bytes of one aux element (4, or 2 under aux_bits=16).
 DK_EXPORT int dk_store_insert(
     const uint32_t* s_gt, const uint32_t* s_member, const uint8_t* s_meta,
-    const uint32_t* s_payload, const uint32_t* s_aux, const uint8_t* s_flags,
+    const uint32_t* s_payload, const void* s_aux, const uint8_t* s_flags,
     const uint32_t* b_gt, const uint32_t* b_member, const uint8_t* b_meta,
-    const uint32_t* b_payload, const uint32_t* b_aux, const uint8_t* b_flags,
-    const bool* mask, long long n, long long m, long long b, uint32_t* o_gt,
-    uint32_t* o_member, uint8_t* o_meta, uint32_t* o_payload, uint32_t* o_aux,
-    uint8_t* o_flags, int32_t* counts, cudaStream_t stream) {
+    const uint32_t* b_payload, const void* b_aux, const uint8_t* b_flags,
+    const bool* mask, long long n, long long m, long long b,
+    long long aux_size, uint32_t* o_gt, uint32_t* o_member, uint8_t* o_meta,
+    uint32_t* o_payload, void* o_aux, uint8_t* o_flags, int32_t* counts,
+    cudaStream_t stream) {
   if (m < 1 || b < 0 || m + b > WMAX) return cudaErrorInvalidValue;
+  if (aux_size != 2 && aux_size != 4) return cudaErrorInvalidValue;
   const Cols6 s{s_gt, s_member, s_meta, s_payload, s_aux, s_flags};
   const Cols6 bt{b_gt, b_member, b_meta, b_payload, b_aux, b_flags};
   const Out6 o{o_gt, o_member, o_meta, o_payload, o_aux, o_flags};
   LAUNCH(dk_insert_kernel, dk::blocks_for(n, WARPS), WARPS * 32, 0, stream)(
-      s, bt, mask, n, static_cast<int>(m), static_cast<int>(b), o, counts,
-      counts + n, counts + 2 * n);
+      s, bt, mask, n, static_cast<int>(m), static_cast<int>(b), aux_size == 2,
+      o, counts, counts + n, counts + 2 * n);
   return static_cast<int>(cudaGetLastError());
 }

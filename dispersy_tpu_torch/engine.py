@@ -1,5 +1,5 @@
 """The round engine: one walker interval for every peer (port of the
-legacy-store slice of ``dispersy_tpu/engine.py``).
+legacy-store and byte-diet rounds of ``dispersy_tpu/engine.py``).
 
 ``step(state, cfg)`` advances all peers one round, phase by phase in the
 JAX package's order (its phase markers are kept below): churn, walker
@@ -11,18 +11,27 @@ so the port equals ``dispersy_tpu.engine.step`` on every leaf.
 
 The slice covers configs whose planes and protocol feature flags sit at
 their defaults (:func:`check_slice`); any other config raises
-``NotImplementedError`` before a round starts.  The hot ops go through
+``NotImplementedError`` before a round starts.  The store is the legacy
+ring (merged every round) or the byte-diet store (``store.staging > 0``,
+:mod:`storediet`): arrivals land in a staging buffer, the Bloom claim
+is a persistent digest salted with an epoch, and the sync exchange and
+compaction run on sync rounds only -- for one cohort of peers at a time
+under ``store.cohorts > 1``.  The JAX package chooses a round's phase
+with a ``lax.cond`` on the round counter; here :func:`step` reads the
+round index to the host once per round instead.  The hot ops go through
 the wrappers of :mod:`ops` — plain PyTorch for a CPU state, the
 hand-written kernels for a CUDA state.
 
-u32 values are carried in int64 between ops (``u32.py``); the store and
-the forward buffer stay in their ``torch.uint32`` / ``uint8`` columns.
+u32 values are carried in int64 between ops (``u32.py``); the store, the
+staging buffer and the forward buffer stay in their ``torch.uint32`` /
+``uint16`` / ``uint8`` columns.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dispersy_tpu_torch import storediet as sdiet
 from dispersy_tpu_torch.config import (EMPTY_META, EMPTY_U32,
                                        INTRO_REQUEST_BASE_BYTES,
                                        INTRO_RESPONSE_BYTES, META_AUTHORIZE,
@@ -38,10 +47,10 @@ from dispersy_tpu_torch.ops import store as st
 from dispersy_tpu_torch.ops.hashing import record_hash
 from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
-                                       StoreConfig, TelemetryConfig,
-                                       TraceConfig)
+                                       TelemetryConfig, TraceConfig)
 from dispersy_tpu_torch.state import NEVER, PeerState
-from dispersy_tpu_torch.u32 import MASK, bits, narrow, unbits, wide, zeros
+from dispersy_tpu_torch.u32 import (MASK, bits, cast, narrow, narrow16,
+                                    unbits, wide, zeros)
 
 # Loss-draw salt blocks (engine.py): one disjoint block per packet kind.
 _LOSS_REQUEST = 0 << 16
@@ -61,10 +70,10 @@ _COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
 
 def check_slice(cfg: CommunityConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
-    is off the ported slice (legacy store, every plane and protocol
-    feature flag at its default, public NAT)."""
+    is off the ported slice (the legacy or byte-diet store, every plane
+    and protocol feature flag at its default, public NAT)."""
     off = [
-        ("store", cfg.store != StoreConfig()),
+        ("sync_enabled", cfg.store_diet and not cfg.sync_enabled),
         ("faults", cfg.faults != FaultModel()),
         ("telemetry", cfg.telemetry != TelemetryConfig()),
         ("trace", cfg.trace != TraceConfig()),
@@ -94,8 +103,9 @@ def check_slice(cfg: CommunityConfig) -> None:
         if is_off:
             raise NotImplementedError(
                 f"CommunityConfig.{name} is off the ported slice (the "
-                "legacy-store round with every optional plane and feature "
-                "flag at its default)")
+                "legacy-store and byte-diet rounds with every optional "
+                "plane and feature flag at its default; the diet needs "
+                "sync_enabled)")
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -135,17 +145,62 @@ def _fold_gt(own, seen, seen_valid, rng_range: int) -> torch.Tensor:
     return torch.maximum(own, best)
 
 
-def _tab(state: PeerState) -> cand.CandTable:
+def _cand_deq(col: torch.Tensor, cfg: CommunityConfig) -> torch.Tensor:
+    """Candidate-timestamp leaf -> f32 sim-seconds.  Under
+    ``store.cand_bits == 16`` the leaf is a u16 round-stamp: 0 is never,
+    stamp s is ``(s - 1) * walk_interval``; identity otherwise."""
+    if col.dtype != torch.uint16:
+        return col
+    dev = col.device
+    w = wide(col)
+    sec = (w.to(torch.float32) - _f32(1.0, dev)) * _f32(cfg.walk_interval,
+                                                        dev)
+    return torch.where(w == 0, _f32(NEVER, dev), sec)
+
+
+def _cand_quant(col: torch.Tensor, cfg: CommunityConfig) -> torch.Tensor:
+    """f32 sim-seconds -> the candidate-timestamp leaf: NEVER -> stamp 0,
+    else ``round(sec / walk_interval) + 1`` (half to even, in f32)
+    clipped to [1, 65535]; identity unless ``store.cand_bits == 16``."""
+    if cfg.store.cand_bits != 16:
+        return col
+    dev = col.device
+    q = torch.round(col / _f32(cfg.walk_interval, dev)).to(torch.int32) + 1
+    q = q.clamp(1, 65535).to(torch.int64)
+    return narrow16(torch.where(col == _f32(NEVER, dev), 0, q))
+
+
+def _tab(state: PeerState, cfg: CommunityConfig) -> cand.CandTable:
     return cand.CandTable(peer=state.cand_peer,
-                          last_walk=state.cand_last_walk,
-                          last_stumble=state.cand_last_stumble,
-                          last_intro=state.cand_last_intro)
+                          last_walk=_cand_deq(state.cand_last_walk, cfg),
+                          last_stumble=_cand_deq(state.cand_last_stumble,
+                                                 cfg),
+                          last_intro=_cand_deq(state.cand_last_intro, cfg))
 
 
 def _store(state: PeerState) -> st.StoreCols:
     return st.StoreCols(gt=state.store_gt, member=state.store_member,
                         meta=state.store_meta, payload=state.store_payload,
                         aux=state.store_aux, flags=state.store_flags)
+
+
+def _staging(state: PeerState) -> st.StoreCols:
+    return st.StoreCols(gt=state.sta_gt, member=state.sta_member,
+                        meta=state.sta_meta, payload=state.sta_payload,
+                        aux=state.sta_aux, flags=state.sta_flags)
+
+
+_STORE_FILLS = (EMPTY_U32, EMPTY_U32, EMPTY_META, EMPTY_U32, 0, 0)
+
+
+def _u32(v: int, dev) -> torch.Tensor:
+    """A 0-dim ``torch.uint32`` (a host-int salt)."""
+    return narrow(torch.tensor(v & MASK, dtype=torch.int64, device=dev))
+
+
+def _round_host(state: PeerState) -> int:
+    """The round index on the host (one device sync)."""
+    return int(state.round_index.view(torch.int32).item()) & MASK
 
 
 def _layout_cols(cfg: CommunityConfig, dev):
@@ -156,6 +211,16 @@ def _layout_cols(cfg: CommunityConfig, dev):
     def full(v):
         return torch.full((n,), v, dtype=torch.int32, device=dev)
     return full(0), full(t), full(t), full(n - t)
+
+
+def _req_bytes_in(req_bytes, ok: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """int64 [rows]: the bytes of the accepted requests of each inbox row
+    (a per-peer ``req_bytes`` vector is gathered at each source)."""
+    if not isinstance(req_bytes, torch.Tensor):
+        return ok.sum(dim=1) * req_bytes
+    return torch.where(ok, req_bytes[src.to(torch.int64).clamp(min=0)],
+                       0).sum(dim=1)
 
 
 def _stats_out(state: PeerState, acc: dict):
@@ -169,23 +234,39 @@ def step(state: PeerState, cfg: CommunityConfig,
          phase: str | None = None) -> PeerState:
     """Advance every peer one walker interval (~5 simulated seconds).
 
-    ``phase`` only matters under the byte-diet store, which is off the
-    slice, so it is accepted and ignored.  Runs on the state's device.
+    ``phase`` only matters under the byte-diet store
+    (``cfg.store.staging > 0``): ``"sync"`` runs the sync exchange and
+    compaction round, ``"quiet"`` the staging-only round, and ``None``
+    picks the one the round counter's cadence names
+    (:func:`storediet.phase_of`).  Under the diet the round index is
+    read to the host once per round.  Runs on the state's device and
+    never writes into ``state``'s tensors.
     """
-    del phase
+    if phase not in (None, "sync", "quiet"):
+        raise ValueError(f"unknown step phase {phase!r}: expected 'sync', "
+                         "'quiet' or None")
     check_slice(cfg)
-    return _step_impl(state, cfg)
+    if not cfg.store_diet:
+        return _step_impl(state, cfg, "sync", None)
+    rnd = _round_host(state)
+    return _step_impl(state, cfg, phase or sdiet.phase_of(cfg, rnd), rnd)
 
 
 def multi_step(state: PeerState, cfg: CommunityConfig, k: int) -> PeerState:
-    """Advance ``k`` rounds."""
+    """Advance ``k`` rounds along the cadence (one host read in all)."""
     check_slice(cfg)
+    rnd = _round_host(state) if cfg.store_diet else None
     for _ in range(k):
-        state = _step_impl(state, cfg)
+        if rnd is None:
+            state = _step_impl(state, cfg, "sync", None)
+        else:
+            state = _step_impl(state, cfg, sdiet.phase_of(cfg, rnd), rnd)
+            rnd = (rnd + 1) & MASK
     return state
 
 
-def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
+def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
+               rnd_h: int | None) -> PeerState:
     n, t = cfg.n_peers, cfg.n_trackers
     dev = state.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -199,16 +280,42 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
     acc["accepted_by_meta"] = torch.zeros((n, cfg.n_meta + 1),
                                           dtype=torch.int64, device=dev)
     bup, bdown = z64.clone(), z64.clone()
-    sync_on = cfg.sync_enabled
-    req_bytes = (INTRO_REQUEST_BASE_BYTES + 4 * cfg.bloom_words
-                 if sync_on else INTRO_REQUEST_BASE_BYTES - 20)
     rng_range = cfg.acceptable_global_time_range
+    # Byte-diet store (storediet.py): arrivals land in the staging buffer,
+    # the ring merges on sync rounds only, the Bloom claim is the
+    # persistent digest, and the sync exchange runs on sync rounds only.
+    diet = cfg.store_diet
+    sync_on = cfg.sync_enabled and (not diet or phase == "sync")
+    compact_now = diet and phase == "sync"
+    # Cohort staggering: a sync round runs the claim / serve / compact
+    # path for the active cohort's N / cohorts block only; every peer's
+    # digest lives at its own cohort's epoch (the per-peer salt).
+    stagger = cfg.store_stagger
+    if stagger:
+        ep = state.epoch
+        a_coh = sdiet.active_cohort(cfg, rnd_h)
+        ep_a = sdiet.epoch_of_cohort(cfg, rnd_h, a_coh)
+        coh = cfg.store.cohorts
+    elif diet:
+        ep = _u32(sdiet.epoch_of(cfg, rnd_h), dev)
+    # A quiet round's request carries no sync tuple; under staggering only
+    # the active cohort's walkers carry it on a sync round.
+    full_req = INTRO_REQUEST_BASE_BYTES + 4 * cfg.bloom_words
+    if stagger and sync_on:
+        req_bytes = torch.where(
+            wide(state.cohort) == a_coh, full_req,
+            INTRO_REQUEST_BASE_BYTES - 20)
+    else:
+        req_bytes = full_req if sync_on else INTRO_REQUEST_BASE_BYTES - 20
 
     # ---- phase 0: churn -------------------------------------------------
-    # A churned peer restarts with a wiped disk: empty store, empty
-    # candidate table and forward buffer, clock reset, session bumped.
-    # Trackers never churn.
-    tab, stc = _tab(state), _store(state)
+    # A churned peer restarts with a wiped disk: empty store, staging and
+    # digest, empty candidate table and forward buffer, clock reset,
+    # session bumped.  Trackers never churn.
+    tab, stc = _tab(state, cfg), _store(state)
+    sta = _staging(state) if diet else None
+    dig = state.digest if diet else None
+    epoch = state.epoch
     fwd = (state.fwd_gt, state.fwd_member, state.fwd_meta,
            state.fwd_payload, state.fwd_aux)
     global_time, session = wide(state.global_time), wide(state.session)
@@ -224,9 +331,18 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
             last_walk=torch.where(m1, never, tab.last_walk),
             last_stumble=torch.where(m1, never, tab.last_stumble),
             last_intro=torch.where(m1, never, tab.last_intro))
-        stc = st.StoreCols(*(
-            _fill(m1, c, f) for c, f in zip(
-                stc, (EMPTY_U32, EMPTY_U32, EMPTY_META, EMPTY_U32, 0, 0))))
+        stc = st.StoreCols(*(_fill(m1, c, f)
+                             for c, f in zip(stc, _STORE_FILLS)))
+        if diet:
+            sta = st.StoreCols(*(_fill(m1, c, f)
+                                 for c, f in zip(sta, _STORE_FILLS)))
+            dig = _fill(m1, dig, 0)
+        if stagger:
+            # The epoch leaf wipes with the store and is re-derived from
+            # the round counter and the peer's cohort.
+            epoch = narrow(torch.where(
+                reborn, sdiet.epoch_of_cohort(cfg, rnd_h, wide(state.cohort)),
+                wide(epoch)))
         fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
         global_time = torch.where(reborn, 1, global_time)
         session = session + reborn.to(torch.int64)
@@ -246,7 +362,16 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
     else:
         target = torch.full((n,), NO_PEER, dtype=torch.int32, device=dev)
 
-    if sync_on:
+    if sync_on and stagger:
+        # Staggered claim: the serve below reads the requester's slice
+        # and digest at the active block directly; nothing rides the wire.
+        pass
+    elif sync_on and diet:
+        # Diet claim: the slice from the ring (unchanged since the last
+        # compaction) and the persistent digest as the bloom.
+        sl = st.claim_slice_largest(stc.gt, cfg.bloom_capacity)
+        my_bloom = dig
+    elif sync_on:
         # dispersy_claim_sync_bloom_filter: pick a store slice, fill a
         # bloom salted with the round index (the per-claim filter prefix).
         if cfg.sync_strategy == "modulo":
@@ -299,7 +424,10 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
     # Requests carry the sender's clock as of round start.
     gt_at_send = narrow(global_time)
 
-    if sync_on:
+    # Under staggering the request is always the 2-column quiet layout:
+    # the serve reads the requester's resident digest instead.
+    wire_sync = sync_on and not stagger
+    if wire_sync:
         req_cols = [idx_u32, narrow(sl.time_low), narrow(sl.time_high),
                     narrow(sl.modulo), narrow(sl.offset), gt_at_send,
                     my_bloom]
@@ -307,7 +435,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
         req_cols = [idx_u32, gt_at_send]
     req = inbox.deliver(target, req_cols, send_ok & ~to_tracker, n,
                         cfg.request_inbox)
-    if sync_on:
+    if wire_sync:
         (rq_src, rq_tlow, rq_thigh, rq_mod, rq_off, rq_gt,
          rq_bloom) = req.inbox
     else:
@@ -317,7 +445,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
     rq_src_i = torch.where(rq_ok, bits(rq_src), NO_PEER)
     acc["requests_dropped"] += req.n_dropped
     n_rq = rq_ok.sum(dim=1)
-    bdown = bdown + n_rq * req_bytes
+    bdown = bdown + _req_bytes_in(req_bytes, rq_ok, rq_src_i)
     bup = bup + n_rq * INTRO_RESPONSE_BYTES
 
     # ---- phase 2: request processing at the responder ------------------
@@ -386,7 +514,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
             global_time[t:]])
         acc["requests_dropped"][:t] += treq.n_dropped
         n_tq = tq_ok.sum(dim=1)
-        bdown[:t] += n_tq * req_bytes
+        bdown[:t] += _req_bytes_in(req_bytes, tq_ok, tq_src_i)
         bup[:t] += (n_tq * INTRO_RESPONSE_BYTES
                     + (tq_ok & (intro_t != NO_PEER)).sum(dim=1)
                     * PUNCTURE_REQUEST_BYTES)
@@ -488,8 +616,57 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
     # Per request slot the responder fills an outbox of up to
     # `response_budget` records the requester's bloom lacks, in store
     # order; the requester fetches its outbox row by receipt.
-    if sync_on:
+    if sync_on and stagger:
+        # Digest-serve: computed per requester of the active cohort's
+        # block.  A request holds responder slot edge_slot iff delivery
+        # kept it, and rq_ok there equals act at the responder, so
+        # gathering the responder's ring at each requester's walk target
+        # and serving once per requester visits exactly the (requester,
+        # slot) pairs of the per-slot loop.  The probe runs against the
+        # requester's resident digest at the cohort's epoch salt.
         b = cfg.response_budget
+        blk = n // coh
+        idx_blk = torch.arange(blk, dtype=torch.int64, device=dev) * coh \
+            + a_coh
+        tgt_blk = tgt[idx_blk]                          # responders
+        edge_ok = (req.edge_slot >= 0)[idx_blk]
+        stv = st.StoreCols(*(unbits(bits(c)[tgt_blk], c.dtype)
+                             for c in stc))
+        rec_h2 = narrow(record_hash(stv.member, stv.gt, stv.meta,
+                                    stv.payload))
+        sl_blk = st.claim_slice_largest(st.cohort_take(stc.gt, a_coh, coh),
+                                        cfg.bloom_capacity)
+        in_sl = st.slice_mask(stv.gt, sl_blk)                # [blk, M]
+        present = bloom.bloom_query(st.cohort_take(dig, a_coh, coh), rec_h2,
+                                    cfg.bloom_bits, cfg.bloom_hashes,
+                                    salt=_u32(ep_a, dev))
+        missing = in_sl & ~present & (edge_ok & act[tgt_blk])[:, None]
+        rank = torch.cumsum(missing.to(torch.int32), dim=1) - 1
+        slot = torch.where(missing & (rank < b), rank, b)
+        obox = st.rank_compact_many(
+            [(stv.gt, EMPTY_U32), (stv.member, EMPTY_U32),
+             (stv.meta, EMPTY_META), (stv.payload, EMPTY_U32),
+             (stv.aux, 0), (missing, False)], slot, b)
+        # Into the full [N, b] pickup layout, zeros off the block.
+        sy_gt, sy_member, sy_meta, sy_payload, sy_aux, sy_cand = (
+            st.cohort_set(zeros((n, b), col.dtype, dev), col, a_coh, coh)
+            for col in obox)
+        sync_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_SYNC,
+                          torch.arange(b, device=dev)[None, :])
+        sy_ok = sy_cand & act[:, None] & ~sync_lost
+        # Served records leave the responder pre-loss.
+        bup = bup.index_add(0, tgt_blk, obox[5].sum(dim=1) * RECORD_BYTES)
+        bdown = bdown + sy_ok.sum(dim=1) * RECORD_BYTES
+    elif sync_on:
+        b = cfg.response_budget
+        if diet:
+            # The claim read the digest: hash the ring here, and query
+            # with the epoch salt the requesters' digests carry.
+            rec_h = narrow(record_hash(stc.member, stc.gt, stc.meta,
+                                       stc.payload))
+            q_salt = ep
+        else:
+            q_salt = salt
         outs = []
         for s in range(r):
             sl_s = st.SyncSlice(time_low=rq_tlow[:, s], time_high=rq_thigh[:, s],
@@ -497,7 +674,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
             in_sl = st.slice_mask(stc.gt, sl_s)
             present = bloom.bloom_query(rq_bloom[:, s], rec_h,
                                         cfg.bloom_bits, cfg.bloom_hashes,
-                                        salt=salt)
+                                        salt=q_salt)
             missing = in_sl & ~present & rq_ok[:, s:s + 1]
             rank = torch.cumsum(missing.to(torch.int32), dim=1) - 1
             slot = torch.where(missing & (rank < b), rank, b)
@@ -526,13 +703,15 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
 
     # ---- phase 5: combined intake (sync pull + push) -> store ----------
     # One batch per round, sync records first, then pushed records, in
-    # delivery order.
+    # delivery order.  The batch's aux column is u32 (a u16 store aux is
+    # zero-extended, as the JAX package's concatenation promotes it).
     def cat2(a, b_):
         return unbits(torch.cat([bits(a), bits(b_)], dim=1), a.dtype)
-    in_gt, in_member, in_meta, in_payload, in_aux = (
+    in_gt, in_member, in_meta, in_payload = (
         cat2(a, b_) for a, b_ in ((sy_gt, ph_gt), (sy_member, ph_member),
                                   (sy_meta, ph_meta),
-                                  (sy_payload, ph_payload), (sy_aux, ph_aux)))
+                                  (sy_payload, ph_payload)))
+    in_aux = cat2(cast(sy_aux, torch.uint32), cast(ph_aux, torch.uint32))
     in_ok = torch.cat([sy_ok, ph_ok], dim=1)
     bb = in_gt.shape[1]
     fb = cfg.forward_buffer
@@ -541,9 +720,18 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
         in_ok = in_ok & (wide(in_gt) <= ((global_time[:, None] + rng_range)
                                          & MASK))
         # Freshness: not already stored on UNIQUE(member, global_time) and
-        # not a duplicate of an earlier record in this batch.
-        in_store, dup_in_batch = intake.intake_checks(
-            stc.gt, stc.member, in_member, in_gt, in_ok)
+        # not a duplicate of an earlier record in this batch.  Under the
+        # diet "stored" is a query of the epoch digest, so quiet rounds
+        # read no ring bytes; a Bloom false positive drops a fresh record
+        # as a duplicate, exactly as in the JAX package.
+        if diet:
+            in_h = narrow(record_hash(in_member, in_gt, in_meta, in_payload))
+            in_store = bloom.bloom_query(dig, in_h, cfg.bloom_bits,
+                                         cfg.bloom_hashes, salt=ep)
+            dup_in_batch = intake.dup_earlier(in_member, in_gt, in_ok)
+        else:
+            in_store, dup_in_batch = intake.intake_checks(
+                stc.gt, stc.member, in_member, in_gt, in_ok)
         in_flags = torch.zeros(in_gt.shape, dtype=torch.uint8, device=dev)
         accept = in_ok
         fresh = accept & ~in_store & ~dup_in_batch           # [N, B]
@@ -553,27 +741,81 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
             (bucket[:, :, None] == torch.arange(cfg.n_meta + 1,
                                                 device=dev)[None, None, :])
             & fresh[:, :, None]).sum(dim=1)
-        ins = st.store_insert(
-            stc, st.StoreCols(gt=in_gt, member=in_member, meta=in_meta,
-                              payload=in_payload, aux=in_aux,
-                              flags=in_flags),
-            new_mask=accept, history=cfg.history)
-        stc = ins.store
+        batch = st.StoreCols(gt=in_gt, member=in_member, meta=in_meta,
+                             payload=in_payload, aux=in_aux, flags=in_flags)
+        if diet:
+            # Fresh records append to the staging buffer; duplicates and
+            # staging overflow count as dropped.  msgs_stored counts at
+            # compaction, when records enter the ring.
+            stg = st.store_stage(sta, batch, new_mask=fresh)
+            sta = stg.staging
+            acc["msgs_dropped"] += ((accept & ~fresh).sum(dim=1)
+                                    + stg.n_dropped)
+            if stagger or not compact_now:
+                # OR the landed arrivals into the digest so the next claim
+                # and freshness test cover them (a cohorts=1 compaction
+                # rebuilds it instead; under staggering the active
+                # block's rows are rebuilt below).
+                dig = bloom.digest_update(dig, in_h, stg.landed,
+                                          cfg.bloom_bits, cfg.bloom_hashes,
+                                          salt=ep)
+        else:
+            ins = st.store_insert(stc, batch, new_mask=accept,
+                                  history=cfg.history)
+            stc = ins.store
+            acc["msgs_stored"] += ins.n_inserted
+            acc["msgs_dropped"] += (ins.n_dropped.to(torch.int64)
+                                    + ins.n_evicted)
         global_time = _fold_gt(global_time, wide(in_gt), accept, rng_range)
-        acc["msgs_stored"] += ins.n_inserted
-        acc["msgs_dropped"] += ins.n_dropped.to(torch.int64) + ins.n_evicted
-        # Next round's forward batch = the first F fresh records.
+        # Next round's forward batch = the first F fresh records, aux at
+        # the store's width.
         rank = torch.cumsum(fresh.to(torch.int32), dim=1) - 1
         fslot = torch.where(fresh & (rank < fb), rank, fb)
         fwd = tuple(st.rank_compact_many(
             [(col, st.empty_of(col.dtype))
-             for col in (in_gt, in_member, in_meta, in_payload, in_aux)],
+             for col in (in_gt, in_member, in_meta, in_payload,
+                         cast(in_aux, state.fwd_aux.dtype))],
             fslot, fb))
     else:
         fwd = tuple(
             unbits(st.fill_bits((n, fb), st.empty_of(dt), dt, dev), dt)
             for dt in (torch.uint32, torch.uint32, torch.uint8,
-                       torch.uint32, torch.uint32))
+                       torch.uint32, state.fwd_aux.dtype))
+
+    if compact_now and stagger:
+        # ---- staggered compaction: the active cohort's block merges its
+        # staging into the ring (store_insert semantics), its staging
+        # clears, its digest is rebuilt under the cohort's next epoch
+        # salt, and its epoch leaf bumps.  The blocks are contiguous
+        # copies for the kernels (the slice's cost on the TPU too).  The
+        # ring is the caller's and is copied; a non-empty batch made the
+        # staging and the digest this round, and they are written in place.
+        blk = n // coh
+        sta_blk = st.cohort_take_cols(sta, a_coh, coh)
+        ins = st.store_insert(st.cohort_take_cols(stc, a_coh, coh), sta_blk,
+                              sta_blk.valid, history=cfg.history)
+        stc = st.cohort_put_cols(stc, ins.store, a_coh, coh)
+        put = st.cohort_set if bb > 0 else st.cohort_put
+        sta = st.StoreCols(*(
+            put(c, e, a_coh, coh) for c, e in zip(
+                sta, st.empty_records((blk, cfg.store.staging),
+                                      sta.aux.dtype, dev))))
+        st.cohort_take(acc["msgs_stored"], a_coh, coh).add_(ins.n_inserted)
+        st.cohort_take(acc["msgs_dropped"], a_coh, coh).add_(
+            ins.n_dropped.to(torch.int64) + ins.n_evicted)
+        dig = put(dig, _digest_rebuild(ins.store, cfg, ep_a + 1, dev),
+                  a_coh, coh)
+        epoch = narrow(wide(epoch) + (wide(state.cohort) == a_coh))
+    elif compact_now:
+        # ---- cohorts=1 compaction: the staging buffer (this round's
+        # arrivals included) merges into the ring, clears, and the digest
+        # is rebuilt from the new ring under the next epoch's salt.
+        ins = st.store_insert(stc, sta, sta.valid, history=cfg.history)
+        stc = ins.store
+        sta = st.empty_records(sta.gt.shape, sta.aux.dtype, dev)
+        acc["msgs_stored"] += ins.n_inserted
+        acc["msgs_dropped"] += ins.n_dropped.to(torch.int64) + ins.n_evicted
+        dig = _digest_rebuild(stc, cfg, sdiet.epoch_of(cfg, rnd_h) + 1, dev)
 
     # ---- wrap up --------------------------------------------------------
     if cfg.auto_load:
@@ -582,19 +824,37 @@ def _step_impl(state: PeerState, cfg: CommunityConfig) -> PeerState:
         loaded = loaded | (arrivals & alive)
     acc["bytes_up"] += bup
     acc["bytes_down"] += bdown
+    diet_leaves = {} if not diet else {
+        "sta_gt": sta.gt, "sta_member": sta.member, "sta_meta": sta.meta,
+        "sta_payload": sta.payload, "sta_aux": sta.aux,
+        "sta_flags": sta.flags, "digest": dig, "epoch": epoch}
     return state.replace(
         loaded=loaded, session=narrow(session),
         global_time=narrow(global_time),
-        cand_peer=tab.peer.to(torch.int32), cand_last_walk=tab.last_walk,
-        cand_last_stumble=tab.last_stumble, cand_last_intro=tab.last_intro,
+        cand_peer=tab.peer.to(torch.int32),
+        cand_last_walk=_cand_quant(tab.last_walk, cfg),
+        cand_last_stumble=_cand_quant(tab.last_stumble, cfg),
+        cand_last_intro=_cand_quant(tab.last_intro, cfg),
         store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
         store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
+        **diet_leaves,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         stats=_stats_out(state, acc),
         time=now + _f32(cfg.walk_interval, dev),
         round_index=narrow(rnd + 1),
     )
+
+
+def _digest_rebuild(stc: st.StoreCols, cfg: CommunityConfig, epoch: int,
+                    dev) -> torch.Tensor:
+    """The digest of a freshly compacted ring: its claimed slice under
+    the salt of ``epoch`` (a u32, wrapping)."""
+    sl = st.claim_slice_largest(stc.gt, cfg.bloom_capacity)
+    rec_h = narrow(record_hash(stc.member, stc.gt, stc.meta, stc.payload))
+    return bloom.bloom_build(rec_h, st.slice_mask(stc.gt, sl),
+                             cfg.bloom_bits, cfg.bloom_hashes,
+                             salt=_u32(epoch, dev))
 
 
 def create_messages(state: PeerState, cfg: CommunityConfig,
@@ -627,6 +887,18 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     ins = st.store_insert(_store(state), new, author_mask[:, None],
                           history=cfg.history)
     stc = ins.store
+    diet_leaves = {}
+    if cfg.store_diet:
+        # The record goes straight into the ring, and the digest learns
+        # its probe bits under the salt of the round that claims next:
+        # the author's own cohort's epoch under staggering.
+        salt = (state.epoch if cfg.store_stagger else narrow(
+            wide(state.round_index) // cfg.store.compact_every))
+        new_h = narrow(record_hash(new.member, new.gt, new.meta,
+                                   new.payload))
+        diet_leaves["digest"] = bloom.digest_update(
+            state.digest, new_h, author_mask[:, None], cfg.bloom_bits,
+            cfg.bloom_hashes, salt=salt)
     fb = cfg.forward_buffer
     fwd = [state.fwd_gt, state.fwd_member, state.fwd_meta,
            state.fwd_payload, state.fwd_aux]
@@ -638,13 +910,14 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
             old = cb[idx, put]
             cb[idx, put] = torch.where(author_mask, bits(val), old)
             return unbits(cb, cur.dtype)
-        fwd = [buf(cur, col[:, 0]) for cur, col in zip(
+        fwd = [buf(cur, cast(col[:, 0], cur.dtype)) for cur, col in zip(
             fwd, (new.gt, new.member, new.meta, new.payload, new.aux))]
     abm = wide(state.stats.accepted_by_meta)
     abm[:, min(meta, cfg.n_meta)] += author_mask.to(torch.int64)
     return state.replace(
         store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
         store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
+        **diet_leaves,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         global_time=narrow(torch.where(author_mask, gt_new,
@@ -690,24 +963,33 @@ def seed_overlay(state: PeerState, cfg: CommunityConfig,
     def never_k():
         return torch.full((n, cfg.k_candidates), NEVER, dtype=torch.float32,
                           device=dev)
+    # Under cand_bits=16 the negative pre-epoch stamp saturates to the
+    # oldest live stamp, as in the JAX package.
     return state.replace(
         cand_peer=torch.cat([nbr, torch.full((n, pad), NO_PEER,
                                              dtype=torch.int32, device=dev)],
                             dim=1),
-        cand_last_walk=torch.cat(
+        cand_last_walk=_cand_quant(torch.cat(
             [torch.where(nbr == NO_PEER, never, eligible_at),
-             never.expand(n, pad)], dim=1),
-        cand_last_stumble=never_k(),
-        cand_last_intro=never_k())
+             never.expand(n, pad)], dim=1), cfg),
+        cand_last_stumble=_cand_quant(never_k(), cfg),
+        cand_last_intro=_cand_quant(never_k(), cfg))
 
 
 def coverage(state: PeerState, member: int, gt: int, meta: int,
              payload: int) -> torch.Tensor:
     """f32: fraction of alive non-tracker peers whose store holds the
-    record (the convergence metric)."""
-    has = ((wide(state.store_gt) == gt) & (wide(state.store_member) == member)
-           & (state.store_meta.to(torch.int64) == meta)
-           & (wide(state.store_payload) == payload)).any(dim=1)
+    record (the convergence metric).  The store is the ring and, under
+    the byte diet, the staging buffer too."""
+    def holds(g, m, t, p):
+        return ((wide(g) == gt) & (wide(m) == member)
+                & (t.to(torch.int64) == meta)
+                & (wide(p) == payload)).any(dim=1)
+    has = holds(state.store_gt, state.store_member, state.store_meta,
+                state.store_payload)
+    if state.sta_gt.shape[1]:
+        has = has | holds(state.sta_gt, state.sta_member, state.sta_meta,
+                          state.sta_payload)
     syncing = state.alive & ~state.is_tracker
     num = (has & syncing).sum().to(torch.float32)
     den = syncing.sum().clamp(min=1).to(torch.float32)

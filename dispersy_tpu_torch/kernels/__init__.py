@@ -30,19 +30,21 @@ from dispersy_tpu_torch.exceptions import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("deliver", "bloom", "store", "compact")
+SOURCES = ("deliver", "bloom", "store", "compact", "stage")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # One launch count per kernel, bumped where its wrapper launches it and
 # nowhere else.
 LAUNCHES = {"deliver": 0, "bloom_build": 0, "bloom_query": 0,
-            "store_insert": 0, "rank_compact_many": 0, "intake_checks": 0}
+            "digest_update": 0, "store_insert": 0, "rank_compact_many": 0,
+            "store_stage": 0, "intake_checks": 0, "dup_earlier": 0}
 _LIBS: dict = {}
 MAX_COLS = 8           # csrc/deliver.cu, csrc/compact.cu MAX_COLS
 DELIVER_MAX_INBOX = 2048   # csrc/deliver.cu SEL_HALF
 STORE_MAX_WIDTH = 256      # csrc/store.cu WMAX (M + B)
 BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
+STAGE_MAX_SLOTS = 32       # csrc/stage.cu MAX_S
 
 
 def reset_launches() -> None:
@@ -146,7 +148,7 @@ def _i64s(values) -> ctypes.Array:
     return (ctypes.c_longlong * MAX_COLS)(*values)
 
 
-_COL_DTYPES = (torch.uint32, torch.uint8, torch.bool)
+_COL_DTYPES = (torch.uint32, torch.uint16, torch.uint8, torch.bool)
 
 
 # ---- K1: deliver ---------------------------------------------------------
@@ -193,11 +195,16 @@ def deliver(dst, cols, valid, n_peers: int, inbox_size: int):
 
 # ---- K2: bloom build / query ---------------------------------------------
 
-def _salt_ptr(salt) -> int | None:
+def _salt(salt, n: int) -> tuple:
+    """(pointer, row stride) of a salt: None is unsalted, a 0-dim u32 one
+    salt for every row (stride 0), a u32 [n] vector one salt per row."""
     if salt is None:
-        return None
-    _req(salt, "bloom.salt", (torch.uint32,), ())
-    return salt.data_ptr()
+        return None, 0
+    if salt.dim() == 0:
+        _req(salt, "bloom.salt", (torch.uint32,), ())
+        return salt.data_ptr(), 0
+    _req(salt, "bloom.salt", (torch.uint32,), (n,))
+    return salt.data_ptr(), 1
 
 
 def _bloom_bits(n_bits: int) -> None:
@@ -214,11 +221,29 @@ def bloom_build(item_hashes, mask, n_bits: int, n_hashes: int, salt=None):
     _bloom_bits(n_bits)
     words = torch.empty((n, n_bits // 32), dtype=torch.uint32,
                         device=mask.device)
-    err = _fn("bloom", "dk_bloom_build", 9)(
+    err = _fn("bloom", "dk_bloom_build", 10)(
         item_hashes.data_ptr(), mask.data_ptr(), n, m, n_bits, n_hashes,
-        _salt_ptr(salt), words.data_ptr(), _stream())
+        *_salt(salt, n), words.data_ptr(), _stream())
     _check(err, "bloom", "bloom_build")
     LAUNCHES["bloom_build"] += 1
+    return words
+
+
+def digest_update(digest, item_hashes, mask, n_bits: int, n_hashes: int,
+                  salt=None):
+    """K6: a new digest, ``digest`` with the masked items' probe bits ORed
+    in; one warp per row over a shared-memory bitset (csrc/bloom.cu)."""
+    n, m = item_hashes.shape
+    _req(item_hashes, "digest_update.item_hashes", (torch.uint32,))
+    _req(mask, "digest_update.mask", (torch.bool,), (n, m))
+    _bloom_bits(n_bits)
+    _req(digest, "digest_update.digest", (torch.uint32,), (n, n_bits // 32))
+    words = torch.empty_like(digest)
+    err = _fn("bloom", "dk_digest_update", 11)(
+        digest.data_ptr(), item_hashes.data_ptr(), mask.data_ptr(), n, m,
+        n_bits, n_hashes, *_salt(salt, n), words.data_ptr(), _stream())
+    _check(err, "bloom", "digest_update")
+    LAUNCHES["digest_update"] += 1
     return words
 
 
@@ -233,9 +258,9 @@ def bloom_query(words, item_hashes, n_bits: int, n_hashes: int, salt=None):
     if words.stride(1) != 1:
         raise KernelError("bloom_query.words: each row must be contiguous")
     out = torch.empty((n, m), dtype=torch.bool, device=words.device)
-    err = _fn("bloom", "dk_bloom_query", 10)(
+    err = _fn("bloom", "dk_bloom_query", 11)(
         words.data_ptr(), words.stride(0), item_hashes.data_ptr(), n, m,
-        n_bits, n_hashes, _salt_ptr(salt), out.data_ptr(), _stream())
+        n_bits, n_hashes, *_salt(salt, n), out.data_ptr(), _stream())
     _check(err, "bloom", "bloom_query")
     LAUNCHES["bloom_query"] += 1
     return out
@@ -243,30 +268,41 @@ def bloom_query(words, item_hashes, n_bits: int, n_hashes: int, salt=None):
 
 # ---- K3: store insert ------------------------------------------------------
 
-_STORE_DT = (torch.uint32, torch.uint32, torch.uint8, torch.uint32,
-             torch.uint32, torch.uint8)
+_AUX_DT = (torch.uint32, torch.uint16)
+
+
+def _store_dts(aux_dtype) -> tuple:
+    """The six record-column dtypes, with the given aux dtype."""
+    return (torch.uint32, torch.uint32, torch.uint8, torch.uint32,
+            aux_dtype, torch.uint8)
+
+
+def _req_cols(cols, name: str, shape, aux_dtypes=_AUX_DT) -> None:
+    _req(cols[4], f"{name}[4]", aux_dtypes, shape)
+    for i, (c, dt) in enumerate(zip(cols, _store_dts(cols[4].dtype))):
+        _req(c, f"{name}[{i}]", (dt,), shape)
 
 
 def store_insert(store, new, new_mask):
     """Per-row merge, dup kill and fused compaction (csrc/store.cu).
-    Returns the six [N, M] columns and the three i32[N] counts."""
+    Returns the six [N, M] columns and the three i32[N] counts.  The aux
+    column is u32 or u16, the same in ``store`` and ``new``."""
     n, m = store[0].shape
     b = new[0].shape[1]
-    for i, (c, dt) in enumerate(zip(store, _STORE_DT)):
-        _req(c, f"store_insert.store[{i}]", (dt,), (n, m))
-    for i, (c, dt) in enumerate(zip(new, _STORE_DT)):
-        _req(c, f"store_insert.new[{i}]", (dt,), (n, b))
+    _req_cols(store, "store_insert.store", (n, m))
+    _req_cols(new, "store_insert.new", (n, b), (store[4].dtype,))
     _req(new_mask, "store_insert.new_mask", (torch.bool,), (n, b))
     if m < 1 or m + b > STORE_MAX_WIDTH:
         raise KernelError(f"store_insert: M + B = {m + b} not in "
                           f"[1, {STORE_MAX_WIDTH}]")
     dev = new_mask.device
-    out = [torch.empty((n, m), dtype=dt, device=dev) for dt in _STORE_DT]
+    out = [torch.empty((n, m), dtype=dt, device=dev)
+           for dt in _store_dts(store[4].dtype)]
     counts = torch.empty((3, n), dtype=torch.int32, device=dev)
-    err = _fn("store", "dk_store_insert", 24)(
+    err = _fn("store", "dk_store_insert", 25)(
         *[c.data_ptr() for c in store], *[c.data_ptr() for c in new],
-        new_mask.data_ptr(), n, m, b, *[c.data_ptr() for c in out],
-        counts.data_ptr(), _stream())
+        new_mask.data_ptr(), n, m, b, store[4].element_size(),
+        *[c.data_ptr() for c in out], counts.data_ptr(), _stream())
     _check(err, "store", "store_insert")
     LAUNCHES["store_insert"] += 1
     return (*out, counts[0], counts[1], counts[2])
@@ -301,6 +337,36 @@ def rank_compact_many(cols_fills, slot, width: int):
     return outs
 
 
+# ---- K7: store stage -------------------------------------------------------
+
+def store_stage(staging, new, new_mask):
+    """Append the masked batch after each row's valid prefix, one warp per
+    row (csrc/stage.cu).  Returns the six [N, S] staging columns, the
+    landed mask and the i32[N] overflow count.  ``new``'s aux (u32 or u16)
+    is cast to the staging's aux width in the kernel."""
+    n, s = staging[0].shape
+    b = new[0].shape[1]
+    _req_cols(staging, "store_stage.staging", (n, s))
+    _req_cols(new, "store_stage.new", (n, b))
+    _req(new_mask, "store_stage.new_mask", (torch.bool,), (n, b))
+    if not 1 <= s <= STAGE_MAX_SLOTS:
+        raise KernelError(f"store_stage: S = {s} not in "
+                          f"[1, {STAGE_MAX_SLOTS}]")
+    dev = new_mask.device
+    out = [torch.empty((n, s), dtype=dt, device=dev)
+           for dt in _store_dts(staging[4].dtype)]
+    landed = torch.empty((n, b), dtype=torch.bool, device=dev)
+    n_dropped = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _fn("stage", "dk_store_stage", 27)(
+        *[c.data_ptr() for c in staging], *[c.data_ptr() for c in new],
+        new_mask.data_ptr(), n, s, b, staging[4].element_size(),
+        new[4].element_size(), *[c.data_ptr() for c in out],
+        landed.data_ptr(), n_dropped.data_ptr(), _stream())
+    _check(err, "stage", "store_stage")
+    LAUNCHES["store_stage"] += 1
+    return (*out, landed, n_dropped)
+
+
 # ---- K5: intake checks (Triton) ---------------------------------------------
 
 def intake_checks(store_gt, store_member, member, gt, ok):
@@ -315,13 +381,32 @@ def intake_checks(store_gt, store_member, member, gt, ok):
     _req(ok, "intake.ok", (torch.bool,), (n, b))
     if m < 1 or b < 1:
         raise KernelError("intake_checks: M and B must be >= 1")
+    out = _intake_launch("intake_checks", store_gt, store_member, member,
+                         gt, ok)
+    LAUNCHES["intake_checks"] += 1
+    return out
+
+
+def dup_earlier(member, gt, ok):
+    """K5 without a store operand: ``dup_earlier`` alone, bool [N, B]."""
+    n, b = gt.shape
+    _req(member, "dup_earlier.member", (torch.uint32,), (n, b))
+    _req(gt, "dup_earlier.gt", (torch.uint32,), (n, b))
+    _req(ok, "dup_earlier.ok", (torch.bool,), (n, b))
+    if b < 1:
+        raise KernelError("dup_earlier: B must be >= 1")
+    out = _intake_launch("dup_earlier", None, None, member, gt, ok)
+    LAUNCHES["dup_earlier"] += 1
+    return out
+
+
+def _intake_launch(what: str, *args):
     from dispersy_tpu_torch.kernels import intake_triton
     # Triton raises on a failed compile or launch; the stream query
     # raises on an error the card has already reported (no wait).
     try:
-        out = intake_triton.launch(store_gt, store_member, member, gt, ok)
+        out = intake_triton.launch(*args)
         torch.cuda.current_stream().query()
     except Exception as exc:
-        raise KernelError(f"intake_checks: {exc}") from exc
-    LAUNCHES["intake_checks"] += 1
+        raise KernelError(f"{what}: {exc}") from exc
     return out

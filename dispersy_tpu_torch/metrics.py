@@ -1,7 +1,7 @@
 """Aggregate metrics (port of ``snapshot`` in ``dispersy_tpu/metrics.py``).
 
-Only the legacy path is ported: the telemetry plane's fused row is off
-the slice, so every aggregate is reduced here from the state's leaves.
+The telemetry plane's fused row is off the slice, so every aggregate is
+reduced here from the state's leaves.
 Counters are summed on the host in uint64, as the JAX package does, so
 1M-peer byte totals do not wrap.
 """
@@ -42,9 +42,14 @@ def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
     n_members = max(int(members.sum()), 1)
     totals = {name: _u64_total(getattr(s, name)) for name in U64_COUNTERS}
     ws, wf = totals["walk_success"], totals["walk_fail"]
-    # EMPTY_U32 reads as -1 through the int32 view.
+    # EMPTY_U32 reads as -1 through the int32 view.  The store is ring
+    # and staging under the byte diet: the fill is over both capacities.
     store_live = (state.store_gt.view(torch.int32) != -1).sum(
-        dim=1, dtype=torch.float32)
+        dim=1, dtype=torch.int32)
+    if cfg.store_diet:
+        store_live = store_live + (state.sta_gt.view(torch.int32) != -1).sum(
+            dim=1, dtype=torch.int32)
+    store_cap = cfg.msg_capacity + cfg.store.staging
     cand_live = (state.cand_peer != NO_PEER).sum(dim=1, dtype=torch.float32)
     abm = s.accepted_by_meta.view(torch.int32).cpu().numpy().view(np.uint32)
     return {
@@ -56,7 +61,8 @@ def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
         "walk_fail": wf,
         "walk_success_rate": ws / max(ws + wf, 1),
         **{name: totals[name] for name in U64_COUNTERS[2:]},
-        "store_fill": float((store_live / cfg.msg_capacity).mean()),
+        "store_fill": float((store_live.to(torch.float32)
+                             / store_cap).mean()),
         "candidate_fill": float(torch.where(
             members, cand_live / cfg.k_candidates, 0.0).mean())
         * (cfg.n_peers / float(n_members)),

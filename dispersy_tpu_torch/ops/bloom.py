@@ -18,7 +18,7 @@ import torch
 from dispersy_tpu_torch import kernels
 from dispersy_tpu_torch.ops.hashing import (BLOOM_SALT_SEED, BLOOM_SEED_1,
                                             BLOOM_SEED_2, hash_u32)
-from dispersy_tpu_torch.u32 import MASK, narrow, wide
+from dispersy_tpu_torch.u32 import MASK, bits, narrow, unbits, wide
 
 
 def probe_bits(item_hash: torch.Tensor, n_bits: int, n_hashes: int,
@@ -27,7 +27,10 @@ def probe_bits(item_hash: torch.Tensor, n_bits: int, n_hashes: int,
     ``salt=None`` is unsalted (not the same as salt 0)."""
     h = wide(item_hash)
     if salt is not None:
-        h = h ^ hash_u32(salt, BLOOM_SALT_SEED)
+        mix = hash_u32(salt, BLOOM_SALT_SEED)
+        if mix.dim() == 1:      # one salt per row: line up with the rows
+            mix = mix.reshape((mix.shape[0],) + (1,) * (h.dim() - 1))
+        h = h ^ mix
     h1 = hash_u32(h, BLOOM_SEED_1)
     h2 = hash_u32(h, BLOOM_SEED_2) | 1
     j = torch.arange(n_hashes, dtype=torch.int64, device=h.device)
@@ -71,11 +74,16 @@ def bloom_query_plain(words, item_hashes, n_bits, n_hashes,
     return (((sel >> (probes & 31)) & 1) == 1).all(-1)
 
 
+def digest_update_plain(digest, item_hashes, mask, n_bits, n_hashes,
+                        salt=None) -> torch.Tensor:
+    built = bloom_build_plain(item_hashes, mask, n_bits, n_hashes, salt)
+    return unbits(bits(digest) | bits(built), torch.uint32)
+
+
 def bloom_build(item_hashes: torch.Tensor, mask: torch.Tensor, n_bits: int,
                 n_hashes: int, salt=None) -> torch.Tensor:
     """Packed filters ``uint32[N, n_bits // 32]`` from ``uint32[N, M]`` item
-    hashes under ``bool[N, M]`` mask (masked-out items set no bits).
-    ``salt``: None or a u32 0-dim tensor."""
+    hashes under ``bool[N, M]`` mask (masked-out items set no bits)."""
     assert n_bits % 32 == 0, "n_bits must pack into uint32 words"
     if item_hashes.device.type == "cpu":
         return bloom_build_plain(item_hashes, mask, n_bits, n_hashes, salt)
@@ -89,3 +97,17 @@ def bloom_query(words: torch.Tensor, item_hashes: torch.Tensor, n_bits: int,
     if item_hashes.device.type == "cpu":
         return bloom_query_plain(words, item_hashes, n_bits, n_hashes, salt)
     return kernels.bloom_query(words, item_hashes, n_bits, n_hashes, salt)
+
+
+def digest_update(digest: torch.Tensor, item_hashes: torch.Tensor,
+                  mask: torch.Tensor, n_bits: int, n_hashes: int,
+                  salt=None) -> torch.Tensor:
+    """A new ``uint32[N, W]`` digest: ``digest`` with the probe bits of the
+    masked ``uint32[N, B]`` items ORed in (``digest | bloom_build(...)``;
+    the caller's tensor is not written)."""
+    assert n_bits % 32 == 0, "n_bits must pack into uint32 words"
+    if item_hashes.device.type == "cpu":
+        return digest_update_plain(digest, item_hashes, mask, n_bits,
+                                   n_hashes, salt)
+    return kernels.digest_update(digest, item_hashes, mask, n_bits,
+                                 n_hashes, salt)

@@ -70,8 +70,8 @@ def deliver(dst: torch.Tensor, cols: Sequence[torch.Tensor],
             inbox_size: int) -> Delivery:
     """Deliver an edge list into per-peer inboxes.
 
-    ``dst``: i32[E]; ``cols``: payload columns [E] or [E, W] (u32, u8 or
-    bool); ``valid``: bool[E].  Order within a destination is edge order;
+    ``dst``: i32[E]; ``cols``: payload columns [E] or [E, W] (u32, u16, u8
+    or bool); ``valid``: bool[E].  Order within a destination is edge order;
     ``edge_slot`` is each edge's receipt (its inbox slot, or -1).
     """
     if dst.device.type == "cpu":

@@ -6,8 +6,11 @@ store slots for ``in_store``, over the earlier batch entries for
 ``dup_earlier``.  :func:`intake_checks` is the wrapper that computes both
 in one pass -- on a CUDA tensor through the Triton kernel in
 ``kernels/intake_triton.py``, on a CPU tensor through the plain broadcast
-forms beside it.  Only equality is tested, so u32 columns are compared
-through their int32 bit views.
+forms beside it.  :func:`dup_earlier` is the same kernel in its mode
+without a store operand: under the byte-diet store the "already stored?"
+test is a digest query, so a quiet round reads no ring bytes.  Only
+equality is tested, so u32 columns are compared through their int32 bit
+views.
 """
 
 from __future__ import annotations
@@ -40,3 +43,11 @@ def intake_checks(store_gt, store_member, member, gt, ok):
         return (in_store_plain(store_gt, store_member, member, gt),
                 dup_earlier_plain(member, gt, ok))
     return kernels.intake_checks(store_gt, store_member, member, gt, ok)
+
+
+def dup_earlier(member, gt, ok) -> torch.Tensor:
+    """bool[N, B]: did an earlier valid batch entry carry the same
+    (member, gt)?  Reads no store."""
+    if gt.device.type == "cpu":
+        return dup_earlier_plain(member, gt, ok)
+    return kernels.dup_earlier(member, gt, ok)

@@ -3,11 +3,15 @@
 
 Each peer owns ``msg_capacity`` record slots kept sorted by (global_time,
 member) with ``EMPTY_U32`` holes at the end.  Columns keep their schema
-dtypes (u32 gt/member/payload/aux, u8 meta/flags).
+dtypes (u32 gt/member/payload, u8 meta/flags, and an aux column that is
+u32, or u16 under the byte-diet store's ``aux_bits=16``).
 
-:func:`store_insert` and :func:`rank_compact_many` are wrappers: a CPU
-tensor takes the plain PyTorch version beside them, a CUDA tensor the
-hand-written kernel (``csrc/store.cu``, ``csrc/compact.cu``) or an error.
+:func:`store_insert`, :func:`rank_compact_many` and :func:`store_stage`
+are wrappers: a CPU tensor takes the plain PyTorch version beside them, a
+CUDA tensor the hand-written kernel (``csrc/store.cu``,
+``csrc/compact.cu``, ``csrc/stage.cu``) or an error.
+:func:`cohort_take`, :func:`cohort_put` and :func:`cohort_set` move a cohort's row block of
+the staggered store; they compute nothing and need no kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 
 from dispersy_tpu_torch import kernels
 from dispersy_tpu_torch.config import EMPTY_U32
-from dispersy_tpu_torch.u32 import bits, unbits, wide
+from dispersy_tpu_torch.u32 import bits, cast, unbits, wide
 
 
 def empty_of(dtype) -> int:
@@ -38,7 +42,17 @@ class StoreCols(NamedTuple):
 
     @property
     def valid(self) -> torch.Tensor:
-        return self.gt != EMPTY_U32
+        return bits(self.gt) != -1
+
+
+def empty_records(shape, aux_dtype, device) -> StoreCols:
+    """Empty record columns of ``shape`` (``aux`` in ``aux_dtype``)."""
+    return StoreCols(*(unbits(fill_bits(shape, f, dt, device), dt)
+                       for f, dt in ((EMPTY_U32, torch.uint32),
+                                     (EMPTY_U32, torch.uint32),
+                                     (0xFF, torch.uint8),
+                                     (EMPTY_U32, torch.uint32),
+                                     (0, aux_dtype), (0, torch.uint8))))
 
 
 def count_valid(gt: torch.Tensor) -> torch.Tensor:
@@ -100,6 +114,14 @@ def _masked_batch(new: StoreCols, new_mask: torch.Tensor) -> StoreCols:
         for c, f in zip(new, fills)))
 
 
+def as_store_dtypes(new: StoreCols, store: StoreCols) -> StoreCols:
+    """The batch's narrowed columns (meta, aux, flags) in the store's
+    dtypes: truncating, as the JAX package's ``astype``."""
+    return new._replace(meta=cast(new.meta, store.meta.dtype),
+                        aux=cast(new.aux, store.aux.dtype),
+                        flags=cast(new.flags, store.flags.dtype))
+
+
 def store_insert_plain(store: StoreCols, new: StoreCols,
                        new_mask: torch.Tensor) -> InsertResult:
     """The JAX package's sort form (``_sort_ordered``): one lexicographic
@@ -152,12 +174,7 @@ def store_insert(store: StoreCols, new: StoreCols, new_mask: torch.Tensor,
         raise NotImplementedError(
             "store_insert with a LastSync history (last_sync_history) is "
             "not ported yet")
-    if (new.meta.dtype != store.meta.dtype
-            or new.flags.dtype != store.flags.dtype
-            or new.aux.dtype != store.aux.dtype):
-        new = new._replace(meta=new.meta.to(store.meta.dtype),
-                           flags=new.flags.to(store.flags.dtype),
-                           aux=new.aux.to(store.aux.dtype))
+    new = as_store_dtypes(new, store)
     if new_mask.device.type == "cpu":
         return store_insert_plain(store, new, new_mask)
     gt, member, meta, payload, aux, flags, ins, drop, evi = \
@@ -207,3 +224,82 @@ def claim_slice_modulo(gt: torch.Tensor, capacity: int,
     ones = torch.ones_like(modulo)
     return SyncSlice(time_low=ones, time_high=torch.zeros_like(modulo),
                      modulo=modulo, offset=offset)
+
+
+class StageResult(NamedTuple):
+    staging: StoreCols
+    landed: torch.Tensor     # bool[N, B] arrivals that took a staging slot
+    n_dropped: torch.Tensor  # i32[N] arrivals lost to staging overflow
+
+
+def store_stage_plain(staging: StoreCols, new: StoreCols,
+                      new_mask: torch.Tensor) -> StageResult:
+    s = staging.gt.shape[-1]
+    cnt = count_valid(staging.gt).to(torch.int64)
+    rank = torch.cumsum(new_mask.to(torch.int64), dim=-1) - 1
+    slot = cnt[:, None] + rank
+    landed = new_mask & (slot < s)
+    tgt = torch.where(landed, slot, s)
+
+    def put(cur, val):
+        out = torch.cat([bits(cur), bits(cur[:, :1])], dim=-1)
+        out.scatter_(1, tgt, bits(val))
+        return unbits(out[:, :s].contiguous(), cur.dtype)
+    out = StoreCols(*(put(c, v) for c, v in zip(staging, new)))
+    n_dropped = (new_mask & ~landed).sum(-1, dtype=torch.int32)
+    return StageResult(staging=out, landed=landed, n_dropped=n_dropped)
+
+
+def store_stage(staging: StoreCols, new: StoreCols,
+                new_mask: torch.Tensor) -> StageResult:
+    """Append the masked arrivals to each peer's ``[N, S]`` staging buffer
+    in batch order, after the row's valid prefix; arrivals past ``S`` are
+    dropped and counted.  The batch's columns follow the staging dtypes
+    (``aux`` u32 -> u16 truncates; the kernel narrows it on the way
+    in).  Returns new tensors."""
+    if new_mask.device.type == "cpu":
+        return store_stage_plain(staging, as_store_dtypes(new, staging),
+                                 new_mask)
+    *cols, landed, n_dropped = kernels.store_stage(staging, new, new_mask)
+    return StageResult(StoreCols(*cols), landed, n_dropped)
+
+
+# ---- cohort blocks of the staggered store -----------------------------------
+# Row j of cohort a's block is full row j * cohorts + a, so a block is a
+# strided view of the full array: no copy, no kernel.  ``a`` is a host int
+# (the engine reads the round index once per round).
+
+def cohort_take(col: torch.Tensor, a: int, cohorts: int) -> torch.Tensor:
+    """Cohort ``a``'s ``[N // cohorts, ...]`` row block of a full
+    ``[N, ...]`` array: a strided view."""
+    n = col.shape[0]
+    return col.view((n // cohorts, cohorts) + tuple(col.shape[1:]))[:, a]
+
+
+def cohort_set(col: torch.Tensor, blk: torch.Tensor, a: int,
+               cohorts: int) -> torch.Tensor:
+    """Write ``blk`` into cohort ``a``'s row block of ``col`` in place and
+    return ``col`` (for a ``col`` that the caller made itself)."""
+    cohort_take(bits(col), a, cohorts).copy_(bits(blk))
+    return col
+
+
+def cohort_put(col: torch.Tensor, blk: torch.Tensor, a: int,
+               cohorts: int) -> torch.Tensor:
+    """A copy of ``col`` with cohort ``a``'s row block replaced by ``blk``
+    (the caller's tensor is not written)."""
+    return cohort_set(unbits(bits(col).clone(), col.dtype), blk, a, cohorts)
+
+
+def cohort_take_cols(stc: StoreCols, a: int, cohorts: int) -> StoreCols:
+    """:func:`cohort_take` of every column, made contiguous (the kernels
+    take contiguous rows; the copy is what the block slice costs)."""
+    return StoreCols(*(unbits(bits(cohort_take(c, a, cohorts)).contiguous(),
+                              c.dtype) for c in stc))
+
+
+def cohort_put_cols(stc: StoreCols, blk: StoreCols, a: int,
+                    cohorts: int) -> StoreCols:
+    """:func:`cohort_put` of every column."""
+    return StoreCols(*(cohort_put(c, b, a, cohorts)
+                       for c, b in zip(stc, blk)))

@@ -16,8 +16,9 @@ def bench_config(n_peers: int, platform: str = "tpu") -> CommunityConfig:
 
     ``platform="tpu"`` is the 1M-peer shape (M=48 store slots,
     bloom_capacity=48 -> 480 filter bits = 15 words), ``"cpu"`` the 64k
-    rung (M=64).  Both carry the byte-diet store; the port's first slice
-    runs the legacy ring, ``bench_config(n).replace(store=StoreConfig())``.
+    rung (M=64).  Both carry the byte-diet store (staging 8, a compaction
+    window of 12 rounds staggered over 4 cohorts, u16 aux and candidate
+    stamps); :func:`slice_config` is the same shape on the legacy ring.
     """
     diet = StoreConfig(staging=8, compact_every=12, aux_bits=16,
                        cohorts=4, cand_bits=16)
@@ -48,16 +49,19 @@ OWN_KERNEL_PREFIX = "dk_"
 
 
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
-                   seed: int = 0, top: int = 15) -> dict:
-    """Trace ``rounds`` rounds of the slice's main path on the card with
-    ``torch.profiler``: wall time; device busy time (the sum of the
-    device-side events' times -- the round runs on one stream); the
-    share of it in the hand-written kernels; and the ``top`` entries by
-    device time, both as PyTorch ops (host-side events, each charged the
-    device time of its own kernels) and as device kernels.  Needs a CUDA
-    card; the run is driven as ``chip_smoke.py``'s main path is.
-    ``python -m dispersy_tpu_torch.profiling`` prints it as one JSON
-    line."""
+                   seed: int = 0, top: int = 15, diet: bool = False) -> dict:
+    """Trace ``rounds`` rounds of a main path on the card with
+    ``torch.profiler``: the legacy ring (:func:`slice_config`) or, with
+    ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
+    3 warm-up rounds are two quiet rounds and one sync round, one stride
+    of the cohort cadence).  Reports wall time; device busy time (the sum
+    of the device-side events' times -- the round runs on one stream);
+    the share of it in the hand-written kernels; and the ``top`` entries
+    by device time, both as PyTorch ops (host-side events, each charged
+    the device time of its own kernels) and as device kernels.  Needs a
+    CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
+    ``python -m dispersy_tpu_torch.profiling [--diet]`` prints it as one
+    JSON line."""
     import time
 
     import torch
@@ -66,8 +70,9 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
 
     from dispersy_tpu_torch import engine
     from dispersy_tpu_torch.state import init_state
+    from dispersy_tpu_torch.storediet import phase_of
 
-    cfg = slice_config(n_peers)
+    cfg = bench_config(n_peers) if diet else slice_config(n_peers)
     state = init_state(cfg, seed, device="cuda")
     state = engine.seed_overlay(state, cfg, 8)
     idx = torch.arange(n_peers, device=state.device)
@@ -101,7 +106,8 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                  "calls_per_round": e.count / rounds} for e in evs]
     busy = ms(device)
     return {
-        "n_peers": n_peers, "rounds": rounds,
+        "n_peers": n_peers, "rounds": rounds, "diet": diet,
+        "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
         "device_idle_share": 1.0 - busy * rounds / wall_ms,
@@ -112,5 +118,10 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
 
 
 if __name__ == "__main__":
+    import argparse
     import json
-    print(json.dumps(profile_rounds()))
+    ap = argparse.ArgumentParser(description=profile_rounds.__doc__)
+    ap.add_argument("--diet", action="store_true",
+                    help="trace the byte-diet round of bench_config")
+    args = ap.parse_args()
+    print(json.dumps(profile_rounds(diet=args.diet)))

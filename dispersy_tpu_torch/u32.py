@@ -18,9 +18,13 @@ MASK = 0xFFFFFFFF
 
 
 def wide(x: torch.Tensor) -> torch.Tensor:
-    """Any integer tensor holding u32 values -> int64 carrier in [0, 2^32)."""
+    """Any integer tensor holding u32 values -> int64 carrier in [0, 2^32).
+    A ``torch.uint16`` column widens through its int16 view (zero-extended,
+    never sign-extended)."""
     if x.dtype == torch.uint32:
         return x.view(torch.int32).to(torch.int64) & MASK
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16).to(torch.int64) & 0xFFFF
     if x.dtype == torch.int64:
         return x & MASK
     return x.to(torch.int64) & MASK
@@ -32,6 +36,25 @@ def narrow(x: torch.Tensor) -> torch.Tensor:
         return x
     s = ((x.to(torch.int64) + (1 << 31)) & MASK) - (1 << 31)
     return s.to(torch.int32).view(torch.uint32)
+
+
+def narrow16(x: torch.Tensor) -> torch.Tensor:
+    """int64 carrier -> ``torch.uint16``, keeping the low 16 bits (the
+    truncating ``astype(uint16)`` of the JAX package)."""
+    s = ((x.to(torch.int64) & 0xFFFF) ^ 0x8000) - 0x8000
+    return s.to(torch.int16).view(torch.uint16)
+
+
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """A record column in another unsigned width (u32, u16 or u8):
+    truncating when it narrows, zero-extending when it widens."""
+    if x.dtype == dtype:
+        return x
+    if dtype == torch.uint32:
+        return narrow(wide(x))
+    if dtype == torch.uint16:
+        return narrow16(wide(x))
+    return (wide(x) & 0xFF).to(dtype)
 
 
 _BITS = {torch.uint32: torch.int32, torch.uint16: torch.int16}

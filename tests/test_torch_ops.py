@@ -3,9 +3,12 @@ wrapper) against the JAX package's op on the same numpy inputs, bit for
 bit (tolerance 0: every op here is integer or elementwise float32 work).
 
 The kernel ops (K1 deliver, K2 bloom, K3 store_insert, K4
-rank_compact_many, K5 intake checks) run at their ``@contract`` dims
-(``dispersy_tpu/ops/contracts.py``) and at random small shapes; where the
-JAX op has more than one form, every form is held against the port.
+rank_compact_many, K5 intake checks, K6 digest_update, K7 store_stage)
+run at their ``@contract`` dims (``dispersy_tpu/ops/contracts.py``) and at
+random small shapes; where the JAX op has more than one form, every form
+is held against the port.  The byte-diet store's call shapes (u16 aux
+columns, per-row Bloom salts, the store-less dedup, cohort blocks) have
+cases of their own at the end.
 """
 
 import numpy as np
@@ -46,6 +49,8 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.uint32:
             return x.view(torch.int32).numpy().view(np.uint32)
+        if x.dtype == torch.uint16:
+            return x.view(torch.int16).numpy().view(np.uint16)
         return x.numpy()
     return np.asarray(x)
 
@@ -327,3 +332,185 @@ def test_candidates(seed):
     kill = rs.random(n) < 0.5
     same(cand.remove(pt, to_t(gone), to_t(kill)),
          jcand.remove(jt, jnp.asarray(gone), jnp.asarray(kill)))
+
+
+# ---- the byte-diet round's call shapes ----------------------------------------
+
+def _salts(rs, n, kind):
+    """(port salt, JAX salt): none, one u32 for all rows, or one per row
+    (JAX broadcasts an [N, 1] column, as the engine passes its epochs)."""
+    if kind == "none":
+        return None, None
+    if kind == "scalar":
+        v = np.array(0xFFFFFFFE, np.uint32)     # a wrapped epoch + 1
+        return to_t(v), jnp.uint32(v)
+    v = u32(rs, n, hi=5)
+    v[::4] = 0xFFFFFFFF
+    return to_t(v), jnp.asarray(v)[:, None]
+
+
+@pytest.mark.parametrize("n,m,w,k", BLOOM_SHAPES)
+@pytest.mark.parametrize("salt_kind", ["none", "scalar", "row"])
+def test_digest_update_and_row_salts(n, m, w, k, salt_kind):
+    rs = np.random.default_rng(n + m + w + k)
+    bits = 32 * w
+    ps, js = _salts(rs, n, salt_kind)
+    dig = np.where(rs.random((n, w)) < 0.2, u32(rs, n, w), 0).astype(
+        np.uint32)
+    h = u32(rs, n, m)
+    mask = rs.random((n, m)) < 0.5
+    got = bloom.digest_update(to_t(dig), to_t(h), to_t(mask), bits, k,
+                              salt=ps)
+    # The gather form the JAX engine runs on the CPU ...
+    same([got], [jbloom.digest_update(
+        jnp.asarray(dig), jbloom.probe_bits(jnp.asarray(h), bits, k, js),
+        jnp.asarray(mask), bits)])
+    # ... and the compare form (dig | bloom_build) of the TPU.
+    for impl in ("gather", "compare"):
+        same([got], [jnp.asarray(dig) | jbloom.bloom_build(
+            jnp.asarray(h), jnp.asarray(mask), bits, k, impl=impl,
+            salt=js)])
+    same([bloom.probe_bits(to_t(h), bits, k, ps).to(torch.int32)],
+         [jbloom.probe_bits(jnp.asarray(h), bits, k, js)])
+    # Queries at the same salts: the freshness test against the digest.
+    q = np.where(rs.random((n, m)) < 0.5, h, u32(rs, n, m))
+    present = bloom.bloom_query(got, to_t(q), bits, k, salt=ps)
+    for impl in ("gather", "compare"):
+        same([present], [jbloom.bloom_query(jnp.asarray(to_np(got)),
+                                            jnp.asarray(q), bits, k,
+                                            impl=impl, salt=js)])
+    assert to_np(present)[mask & (q == h)].all()
+    assert not np.array_equal(to_np(got), dig) or not mask.any()
+
+
+STAGE_SHAPES = [  # (N, S, B, p_mask, live fill)
+    (DIMS["N"], DIMS["M"], DIMS["B"], 0.7, 0.5),
+    (32, 8, 24, 0.3, 0.4),     # the bench shape: S = 8, B = b + push
+    (16, 8, 24, 0.9, 0.9),     # overflow everywhere
+    (12, 3, 40, 0.5, 0.0),     # an empty staging buffer, a wide batch
+]
+
+
+@pytest.mark.parametrize("n,s,b,p,fill", STAGE_SHAPES)
+@pytest.mark.parametrize("aux16", [False, True])
+def test_store_stage(n, s, b, p, fill, aux16):
+    rs = np.random.default_rng(n * s + b)
+    # A staging buffer with a valid prefix and EMPTY holes after it.
+    cols = ring(rs, n, s)
+    live = np.arange(s)[None, :] < (rs.random(n) * (s + 1) * fill).astype(
+        int)[:, None]
+    for c, empty in zip(range(6), (U32_MAX, U32_MAX, 255, U32_MAX, 0, 0)):
+        cols[c] = np.where(live, cols[c], empty).astype(cols[c].dtype)
+    if aux16:
+        cols[4] = cols[4].astype(np.uint16)
+    bt = batch(rs, n, b)
+    bt[4] = u32(rs, n, b)                  # full-width aux: narrowed
+    mask = rs.random((n, b)) < p           # holes in the batch
+    want = jstore.store_stage(jstore.StoreCols(*map(jnp.asarray, cols)),
+                              jstore.StoreCols(*map(jnp.asarray, bt)),
+                              jnp.asarray(mask))
+    got = st.store_stage(st.StoreCols(*map(to_t, cols)),
+                         st.StoreCols(*map(to_t, bt)), to_t(mask))
+    same(got.staging, want.staging)
+    same(got[1:], want[1:])
+    if p > 0.8:
+        assert to_np(got.n_dropped).sum() > 0
+
+
+@pytest.mark.parametrize("a", [0, 3])
+def test_cohort_take_put(a):
+    rs = np.random.default_rng(a)
+    n, coh = 24, 4
+    for col in (u32(rs, n, 6), u32(rs, n, 5).astype(np.uint16),
+                rs.random((n, 3)) < 0.5, u32(rs, n)):
+        blk = np.asarray(jstore.cohort_take(jnp.asarray(col), jnp.uint32(a),
+                                            coh))
+        pt = to_t(col)
+        same([st.cohort_take(pt, a, coh)], [blk])
+        new = np.flip(blk, axis=0).copy()
+        before = to_np(pt).copy()
+        got = st.cohort_put(pt, to_t(new), a, coh)
+        same([got], [jstore.cohort_put(jnp.asarray(col), jnp.asarray(new),
+                                       jnp.uint32(a), coh)])
+        same([pt], [before])               # the caller's tensor is kept
+        mine = to_t(col)
+        assert st.cohort_set(mine, to_t(new), a, coh) is mine
+        same([mine], [got])                # written in place
+    cols = st.StoreCols(*map(to_t, ring(rs, n, 6)))
+    blk = st.cohort_take_cols(cols, a, coh)
+    assert all(c.is_contiguous() for c in blk)
+    same(st.cohort_put_cols(cols, blk, a, coh), cols)
+
+
+@pytest.mark.parametrize("n,m,b,keys", STORE_SHAPES)
+def test_store_insert_u16_aux(n, m, b, keys):
+    """The staggered compaction: ring and staging with u16 aux; and the
+    create_messages batch, whose u32 aux narrows to the ring's u16."""
+    rs = np.random.default_rng(n + m + b + keys)
+    s = ring(rs, n, m, keys)
+    s[4] = (s[4].astype(np.uint32) * 30000).astype(np.uint16)
+    for aux_dt in (np.uint16, np.uint32):
+        bt = batch(rs, n, b, keys)
+        bt[4] = u32(rs, n, b).astype(aux_dt)
+        mask = rs.random((n, b)) < 0.7
+        want = jstore.store_insert(jstore.StoreCols(*map(jnp.asarray, s)),
+                                   jstore.StoreCols(*map(jnp.asarray, bt)),
+                                   jnp.asarray(mask))
+        got = st.store_insert(st.StoreCols(*map(to_t, s)),
+                              st.StoreCols(*map(to_t, bt)), to_t(mask))
+        assert got.store.aux.dtype == torch.uint16
+        same(got.store, want.store)
+        same(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("impl", ["gather", "scatter"])
+def test_rank_compact_many_u16(impl):
+    """The serve outbox and the forward buffer with a u16 aux column."""
+    rs = np.random.default_rng(7)
+    n, w, width = 24, 48, 8
+    live = rs.random((n, w)) < 0.3
+    rank = np.cumsum(live, axis=1) - 1
+    slot = np.where(live & (rank < width), rank, width).astype(np.int32)
+    cols = [(u32(rs, n, w), U32_MAX),
+            (u32(rs, n, w).astype(np.uint16), 0),
+            (u32(rs, n, w).astype(np.uint16), 0xFFFF),
+            (rs.integers(0, 256, size=(n, w)).astype(np.uint8), 0xFF),
+            (live, False)]
+    want = jstore.rank_compact_many(
+        [(jnp.asarray(c), f) for c, f in cols], jnp.asarray(slot), width,
+        impl=impl)
+    got = st.rank_compact_many([(to_t(c), f) for c, f in cols], to_t(slot),
+                               width)
+    same(got, want)
+
+
+def test_deliver_u16_column():
+    """The push blast with the u16 aux column of the diet's forward
+    buffer, beside u32 and u8 columns."""
+    rs = np.random.default_rng(11)
+    e, n, q = 600, 40, 16
+    dst = rs.integers(-1, n + 1, size=e).astype(np.int32)
+    valid = rs.random(e) < 0.8
+    cols = [u32(rs, e), rs.integers(0, 256, size=e).astype(np.uint8),
+            u32(rs, e).astype(np.uint16)]
+    want = jinbox.deliver(jnp.asarray(dst), [jnp.asarray(c) for c in cols],
+                          jnp.asarray(valid), n, q)
+    got = inbox.deliver(to_t(dst), [to_t(c) for c in cols], to_t(valid), n,
+                        q)
+    assert got.inbox[2].dtype == torch.uint16
+    same(got.inbox, want.inbox)
+    same(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("n,b", [(DIMS["N"], DIMS["B"]), (32, 24), (8, 40)])
+@pytest.mark.parametrize("impl", ["broadcast", "chunked"])
+def test_dup_earlier_without_store(n, b, impl):
+    rs = np.random.default_rng(n * b)
+    bg, bm = u32(rs, n, b, hi=12), u32(rs, n, b, hi=3)
+    ok = rs.random((n, b)) < 0.7
+    want = jintake.dup_earlier(jnp.asarray(bm), jnp.asarray(bg),
+                               jnp.asarray(ok), impl=impl)
+    got = intake.dup_earlier(to_t(bm), to_t(bg), to_t(ok))
+    same([got], [want])
+    if n * b > 100:
+        assert to_np(got).any()
