@@ -8,23 +8,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions; builds the CUDA kernels from ``dispersy_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, in parallel);
-2. kernels: every kernel of the two paths (K1-K7) on random inputs made
-   with a numpy seed at the shapes the 1M-peer rounds give it -- the
-   legacy ring's shapes, then the byte-diet round's (u16 aux columns,
-   per-row Bloom salts, the cohort block, the staging buffer) -- held bit
+2. kernels: every kernel of the three paths (K1-K10) on random inputs
+   made with a numpy seed at the shapes the 1M-peer rounds give it -- the
+   legacy ring's shapes, the byte-diet round's (u16 aux columns, per-row
+   Bloom salts, the cohort block, the staging buffer), then the
+   permissioned round's (the [N, 8] grant tables, the store replays in
+   each K9 mode, store_remove, K3 with a LastSync history) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events beside the plain version, the bytes bound and, where one
    PyTorch call does the same work, that call;
 3. parity: 4096-peer runs on the card through the kernels and on the CPU
    through the plain versions, equal on every state leaf after every
    round: the legacy ring for 20 rounds, the byte-diet
-   ``bench_config(4096)`` for 24 rounds (two compaction windows);
+   ``bench_config(4096)`` for 24 rounds (two compaction windows), and the
+   permissioned community for 22 rounds of
+   ``profiling.permissioned_schedule`` (the destroy included);
 4. main paths through the public entry points -- init_state,
-   seed_overlay(8), one record authored by every 64th peer, warm-up and
-   timed rounds -- each with every kernel's launch count read after it:
-   the byte-diet round at ``bench_config(1 << 20)`` exactly (3 + 24
-   rounds, so every cohort compacts twice; ms per round overall, quiet
-   and sync), then the legacy ring at the same shape (3 + 5 rounds).
+   seed_overlay(8), the creates, warm-up and timed rounds -- each with
+   every kernel's launch count read after it: the byte-diet round at
+   ``bench_config(1 << 20)`` exactly (one record by every 64th peer;
+   3 + 24 rounds, so every cohort compacts twice; ms per round overall,
+   quiet and sync), the legacy ring at the same shape (3 + 5 rounds), and
+   the permissioned round of ``permissioned_config(1 << 20)`` (the
+   schedule without the destroy; 3 + 5 rounds, the founder's revoke and
+   its retro pass among them).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -46,7 +53,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (on-chip guide)
 SCALAR_OPS_PER_S = 67e12       # H100 float32 outside the tensor cores
 N_PEERS = 1 << 20              # the full width: bench_config(1 << 20)
 PARITY_PEERS, PARITY_ROUNDS, DIET_PARITY_ROUNDS = 4096, 20, 24
-WARMUP, ROUNDS = 3, 5          # the legacy main path
+PERM_PARITY_ROUNDS = 22        # the whole schedule, the destroy included
+WARMUP, ROUNDS = 3, 5          # the legacy and permissioned main paths
 DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
 SEED = 0
@@ -56,6 +64,11 @@ LEGACY_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
 DIET_PATH = ("deliver", "bloom_build", "bloom_query", "digest_update",
              "store_insert", "rank_compact_many", "store_stage",
              "dup_earlier")
+PERM_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert_history",
+             "rank_compact_many", "intake_checks", "timeline_check",
+             "timeline_check_grant", "store_match_flip",
+             "store_match_undo_marked", "store_match_meta_of",
+             "store_match_undo_hits", "store_remove")
 
 
 def fail(msg: str) -> None:
@@ -551,7 +564,9 @@ def check_diet_stage(x: Inputs, reps: int) -> list:
 
 def check_diet_store(x: Inputs, reps: int) -> list:
     """K3 at the staggered compaction: a cohort block's [N/4, 48] ring
-    and its [N/4, 8] staging buffer, u16 aux."""
+    and its [N/4, 8] staging buffer, u16 aux; and, untimed, the same
+    merge with a LastSync history (meta 2 keeps its newest record per
+    member: a diet with a LastSync meta), bit-equal to the plain version."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
@@ -560,6 +575,20 @@ def check_diet_store(x: Inputs, reps: int) -> list:
     sta = diet_cols(x, blk, cfg.store.staging, prefix=True)
     mask = sta.valid
     want = st.store_insert_plain(ring, sta, mask)
+    hist = (0, 0, 1)
+    want_h = st.store_insert_plain(ring, sta, mask, hist)
+    if not bool((want_h.n_evicted + want_h.n_dropped
+                 > want.n_evicted + want.n_dropped).any()):
+        fail("diet store_insert history inputs never evict")
+    err = max_abs_err(kernels.store_insert(ring, sta, mask, hist),
+                      [*want_h.store, want_h.n_inserted, want_h.n_dropped,
+                       want_h.n_evicted])
+    if err != 0:
+        fail(f"kernel store_insert with a history at the diet compaction's "
+             f"u16 shapes disagrees with its plain version (max abs err "
+             f"{err})")
+    print("kernel store_insert_history_diet_compact: mismatches 0 "
+          "(untimed)", flush=True)
     got = list(kernels.store_insert(ring, sta, mask))
     kept = int((got[0].view(x.torch.int32) != -1).sum())
     moved = (8 * blk * m + nbytes(mask) + 8 * int(mask.sum()) + 8 * kept
@@ -642,6 +671,214 @@ DIET_KERNEL_CHECKS = (check_diet_deliver, check_diet_bloom, check_diet_stage,
                       check_diet_store, check_diet_compact, check_diet_intake)
 
 
+# ---- phase 2, the permissioned round's call shapes ---------------------------
+
+def grant_table(x: Inputs, n: int, a: int):
+    """Random [N, A] grant tables: members and global times from small
+    ranges (so queries hit, and grant and revoke rows tie), nibble masks
+    over the three metas, empty slots."""
+    from dispersy_tpu_torch.ops import timeline as tl
+    np = x.np
+    live = x.rs.random((n, a)) < 0.7
+    member = np.where(live, x.rs.integers(0, 64, size=(n, a)), 0xFFFFFFFF)
+    return tl.AuthTable(member=x.from_u32(member), mask=x.u32(n, a, hi=1 << 12),
+                        gt=x.u32(n, a, hi=40), rev=x.flags(0.3, n, a),
+                        issuer=x.from_u32(np.where(live, x.rs.integers(
+                            0, 64, size=(n, a)), 0xFFFFFFFF)))
+
+
+def check_timeline(x: Inputs, reps: int) -> list:
+    """K8 at the intake batch's [N, 24] queries: ``check`` (u8 metas
+    among them out of the nibble range, a founder column) and
+    ``check_grant`` (AUTHORIZE bits over the three metas); ``check`` also
+    at the retro pass's [N, 48] and the author gate's [N, 1] queries.
+    Bytes: the table's four columns (13 B a slot), the queries, the
+    founder column, the verdicts."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import PERM_AUTHORIZE, PERM_PERMIT
+    from dispersy_tpu_torch.ops import timeline as tl
+    cfg, n = x.cfg, x.cfg.n_peers
+    a, m = cfg.k_authorized, cfg.msg_capacity
+    b = cfg.response_budget + cfg.push_inbox
+    tab = grant_table(x, n, a)
+    founder = x.u32(n, 1, hi=64)
+    rows = []
+
+    def queries(q):
+        meta = torch.from_numpy(x.rs.choice(
+            x.np.array([0, 1, 2, 0xF0, 0xF5], x.np.uint8), size=(n, q))).to(
+                x.dev)
+        return x.u32(n, q, hi=64), meta, x.u32(n, q, hi=48)
+    member, meta, gt = queries(b)
+    got = [kernels.timeline_check(tab, member, meta, gt, founder,
+                                  PERM_PERMIT)]
+    want = [tl.check_plain(tab, member, meta, gt, founder, PERM_PERMIT)]
+    for q in (m, 1):
+        qm, qt, qg = queries(q)
+        got.append(kernels.timeline_check(tab, qm, qt, qg, 8, PERM_AUTHORIZE))
+        want.append(tl.check_plain(tab, qm, qt, qg, 8, PERM_AUTHORIZE))
+    if not bool(got[0].any()) or bool(got[0].all()):
+        fail("timeline_check inputs give a constant answer")
+    rows.append(timed_entry(
+        "timeline_check", "cuda", "dispersy_tpu_torch/csrc/timeline.cu",
+        "dispersy_tpu/ops/timeline.py:100", got, want,
+        lambda: kernels.timeline_check(tab, member, meta, gt, founder,
+                                       PERM_PERMIT),
+        lambda: tl.check_plain(tab, member, meta, gt, founder, PERM_PERMIT),
+        13 * n * a + nbytes(member, meta, gt, founder) + n * b, reps))
+    mask = x.u32(n, b, hi=1 << 12)
+    got = kernels.timeline_check_grant(tab, member, mask, gt, cfg.n_meta,
+                                       PERM_AUTHORIZE)
+    want = tl.check_grant_plain(tab, member, mask, gt, cfg.n_meta,
+                                PERM_AUTHORIZE)
+    if not bool(got.any()):
+        fail("timeline_check_grant inputs never grant")
+    rows.append(timed_entry(
+        "timeline_check_grant", "cuda", "dispersy_tpu_torch/csrc/timeline.cu",
+        "dispersy_tpu/ops/timeline.py:133", [got], [want],
+        lambda: kernels.timeline_check_grant(tab, member, mask, gt,
+                                             cfg.n_meta, PERM_AUTHORIZE),
+        lambda: tl.check_grant_plain(tab, member, mask, gt, cfg.n_meta,
+                                     PERM_AUTHORIZE),
+        13 * n * a + nbytes(member, mask, gt) + n * b, reps))
+    return rows
+
+
+def replay_store(x: Inputs, n: int, m: int):
+    """A ring of dynamic flips, undo records and user records whose keys
+    collide with the queries (u32 aux, the legacy ring's)."""
+    from dispersy_tpu_torch.ops import store as st
+    np = x.np
+    live = x.rs.random((n, m)) < 0.8
+    meta = np.where(live, x.rs.choice(np.array(
+        [0, 1, 2, 0xF0, 0xF2, 0xF3, 0xF4], np.uint8), size=(n, m)), 255)
+    return st.StoreCols(
+        gt=x.from_u32(np.where(live, x.rs.integers(1, 40, size=(n, m)),
+                               0xFFFFFFFF)),
+        member=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
+                                   0xFFFFFFFF)),
+        meta=x.torch.from_numpy(meta.astype(np.uint8)).to(x.dev),
+        payload=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
+                                    0xFFFFFFFF)),
+        aux=x.u32(n, m, hi=40), flags=x.u8(n, m, hi=2))
+
+
+def check_store_match(x: Inputs, reps: int) -> list:
+    """K9 in each mode at the intake's shapes: the [N, 24] batch queries
+    against the [N, 48] ring (``flip``, ``undo_marked``, ``meta_of``),
+    and ``undo_hits``'s [N, 48] ring rows against the [N, 24] batch.
+    Bytes: the selecting column (flag, meta or valid) in full, the key
+    and value columns only at the slots it selects, every query, every
+    output."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import (META_DYNAMIC, META_UNDO_OTHER,
+                                           META_UNDO_OWN)
+    from dispersy_tpu_torch.ops import intake
+    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
+    b = cfg.response_budget + cfg.push_inbox
+    stc = replay_store(x, n, m)
+    member, gt = x.u32(n, b, hi=16), x.u32(n, b, hi=40)
+    q_meta = x.u8(n, b, hi=4)
+    flag = stc.meta == META_DYNAMIC
+    valid = x.flags(0.5, n, b)
+    n_flip = int(flag.sum())
+    n_undo = int(((stc.meta == META_UNDO_OWN)
+                  | (stc.meta == META_UNDO_OTHER)).sum())
+    n_user = int((stc.meta < 32).sum())
+    cases = {
+        "flip": ((flag, stc.payload, stc.gt, stc.aux), (q_meta, gt),
+                 lambda: intake.flip_best_batch_plain(
+                     flag, stc.payload, stc.gt, stc.aux, q_meta, gt),
+                 n * m + 12 * n_flip + nbytes(q_meta, gt) + 4 * n * b,
+                 "dispersy_tpu/ops/intake.py:182"),
+        "undo_marked": ((stc.meta, stc.payload, stc.aux), (member, gt),
+                        lambda: intake.undo_marked_plain(stc, member, gt),
+                        n * m + 8 * n_undo + nbytes(member, gt) + n * b,
+                        "dispersy_tpu/ops/intake.py:217"),
+        "meta_of": ((stc.meta, stc.member, stc.gt), (member, gt),
+                    lambda: intake.stored_meta_of_plain(stc, member, gt),
+                    n * m + 8 * n_user + nbytes(member, gt) + 4 * n * b,
+                    "dispersy_tpu/ops/intake.py:293"),
+        "undo_hits": ((valid, member, gt), (stc.member, stc.gt),
+                      lambda: intake.undo_hits_store_plain(stc, member, gt,
+                                                           valid),
+                      n * b + 8 * int(valid.sum()) + 8 * n * m + n * m,
+                      "dispersy_tpu/ops/intake.py:244"),
+    }
+    rows = []
+    for mode, (w_cols, q_cols, plain, moved, replaces) in cases.items():
+        got = kernels.store_match(mode, w_cols, q_cols)
+        want = plain()
+        hit = got.view(torch.int32) != (0 if mode == "flip" else 0xFFFF) \
+            if got.dtype == torch.uint32 else got
+        if not bool(hit.any()) or bool(hit.all()):
+            fail(f"store_match {mode} inputs give a constant answer")
+        rows.append(timed_entry(
+            f"store_match_{mode}", "triton",
+            "dispersy_tpu_torch/kernels/intake_triton.py", replaces, [got],
+            [want],
+            lambda w_cols=w_cols, q_cols=q_cols, mode=mode:
+            kernels.store_match(mode, w_cols, q_cols),
+            plain, moved, reps))
+    return rows
+
+
+def check_remove(x: Inputs, reps: int) -> list:
+    """K10 on the [N, 48] ring with a kill mask.  Bytes: the gt column and
+    the mask, the survivors' other five columns (14 B), every output."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    store, _ = store_inputs(x)
+    n, m = store.gt.shape
+    kill = x.flags(0.2, n, m)
+    got = list(kernels.store_remove(store, kill))
+    want = st.store_remove_plain(store, kill)
+    kept = int((got[0].view(x.torch.int32) != -1).sum())
+    if not bool(want.n_removed.any()):
+        fail("store_remove inputs remove nothing")
+    return [timed_entry(
+        "store_remove", "cuda", "dispersy_tpu_torch/csrc/remove.cu",
+        "dispersy_tpu/ops/store.py:577", got, [*want.store, want.n_removed],
+        lambda: kernels.store_remove(store, kill),
+        lambda: st.store_remove_plain(store, kill),
+        4 * n * m + nbytes(kill) + 14 * kept + nbytes(*got), reps)]
+
+
+def check_store_history(x: Inputs, reps: int) -> list:
+    """K3 with the permissioned config's LastSync history (meta 2 keeps
+    its newest record per member) at the intake merge [N, 48] + [N, 24].
+    Bytes as K3's: the ring keys and metas, the mask, the masked batch
+    keys and metas, the survivors' other columns, every output."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    n, m = x.cfg.n_peers, x.cfg.msg_capacity
+    hist = x.cfg.history
+    store, batch = store_inputs(x)
+    mask = x.flags(0.6, *batch.gt.shape)
+    want = st.store_insert_plain(store, batch, mask, hist)
+    plain = st.store_insert_plain(store, batch, mask)
+    if not bool((want.n_evicted + want.n_dropped
+                 > plain.n_evicted + plain.n_dropped).any()):
+        fail("store_insert history inputs never evict")
+    got = list(kernels.store_insert(store, batch, mask, hist))
+    kept = int((got[0].view(x.torch.int32) != -1).sum())
+    moved = (9 * n * m + nbytes(mask) + 9 * int(mask.sum()) + 9 * kept
+             + nbytes(*got))
+    return [timed_entry(
+        "store_insert_history", "cuda", "dispersy_tpu_torch/csrc/store.cu",
+        "dispersy_tpu/ops/store.py:265", got,
+        [*want.store, want.n_inserted, want.n_dropped, want.n_evicted],
+        lambda: kernels.store_insert(store, batch, mask, hist),
+        lambda: st.store_insert_plain(store, batch, mask, hist), moved,
+        reps)]
+
+
+PERM_KERNEL_CHECKS = (check_timeline, check_store_match, check_remove,
+                      check_store_history)
+
+
 def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
     """Run ``checks`` on one config's shapes; each row notes the main
     ``path`` whose launch counts it takes."""
@@ -657,40 +894,40 @@ def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
 
 # ---- phase 3: the card against the CPU at a small population --------------
 
-def parity_phase(cfg, seed: int, rounds: int) -> None:
-    import torch
-
+def parity_phase(cfg, seed: int, rounds: int, creates: list) -> None:
     from dispersy_tpu_torch import engine, init_state
     from dispersy_tpu_torch.bridge import assert_states_equal
+    from dispersy_tpu_torch.profiling import run_creates
 
-    def start(device):
-        s = init_state(cfg, seed, device=device)
-        s = engine.seed_overlay(s, cfg, 8)
-        n = cfg.n_peers
-        idx = torch.arange(n, device=s.device)
-        return engine.create_messages(s, cfg, idx % 64 == 0, 1, idx)
-
-    gpu, cpu = start("cuda"), start("cpu")
-    assert_states_equal(gpu, cpu, "after create_messages")
+    gpu, cpu = (engine.seed_overlay(init_state(cfg, seed, device=d), cfg, 8)
+                for d in ("cuda", "cpu"))
     t0 = time.perf_counter()
     for rnd in range(rounds):
+        gpu = run_creates(gpu, cfg, creates, rnd)
+        cpu = run_creates(cpu, cfg, creates, rnd)
+        assert_states_equal(gpu, cpu, f"{cfg.n_peers} peers, creates before "
+                            f"round {rnd}")
         gpu, cpu = engine.step(gpu, cfg), engine.step(cpu, cfg)
         assert_states_equal(gpu, cpu, f"{cfg.n_peers} peers, round {rnd}")
-    print(f"parity: {cfg.n_peers} peers, {cfg.store}, {rounds} rounds, "
-          f"card == cpu on "
-          f"every leaf after every round "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"parity: {cfg.n_peers} peers, {cfg.store}, timeline "
+          f"{cfg.timeline_enabled}, {rounds} rounds, card == cpu on every "
+          f"leaf after every round ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
 
 # ---- phase 4: the main paths at full width -------------------------------
 
 def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
-               rounds: int) -> dict:
+               rounds: int, creates: list, record: tuple) -> dict:
     """Drive one main path through the public entry points with the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after: the creates
+    of each round before its step, the coverage of ``record`` (member,
+    gt, meta, payload) after each timed round.  A round's time includes
+    its creates."""
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
+    from dispersy_tpu_torch.profiling import run_creates
     from dispersy_tpu_torch.storediet import phase_of
 
     torch.cuda.reset_peak_memory_stats()
@@ -698,23 +935,25 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     t0 = time.perf_counter()
     state = init_state(cfg, seed, device="cuda")
     state = engine.seed_overlay(state, cfg, 8)
+    state = run_creates(state, cfg, creates, 0)
     n = cfg.n_peers
-    idx = torch.arange(n, device=state.device)
-    state = engine.create_messages(state, cfg, idx % 64 == 0, 1, idx)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cov = []
-    for _ in range(warmup):
+    for rnd in range(warmup):
+        if rnd:
+            state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
     torch.cuda.synchronize()
     times, phases = [], []
     for rnd in range(warmup, warmup + rounds):
         a = time.perf_counter()
+        state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - a)
         phases.append(phase_of(cfg, rnd))
-        cov.append(float(engine.coverage(state, 64, 2, 1, 64)))
+        cov.append(float(engine.coverage(state, *record)))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -744,6 +983,15 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
         fail(f"{path} main path never launched {missing}: {launches}")
+    timeline = {}
+    if cfg.timeline_enabled:
+        # The retro pass ran (store_remove launches nowhere else); its
+        # counts need not be non-zero at this size (a record reaches few
+        # peers in 8 rounds).
+        from dispersy_tpu_torch.metrics import _u64_total
+        timeline = {k: _u64_total(getattr(state.stats, k)) for k in (
+            "msgs_rejected", "auth_unwound", "msgs_retro")}
+        timeline["killed"] = snap["killed"]
 
     def med(kind):
         sel = [t for t, ph in zip(times, phases) if kind in (None, ph)]
@@ -758,6 +1006,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
            "phases": phases, "peak_mem_gib": peak / 2 ** 30,
            "coverage": cov, "store_fill": snap["store_fill"],
            "walk_success_rate": snap["walk_success_rate"],
+           **timeline,
            "launches": launches, "launches_per_round": {
                k: v / (warmup + rounds) for k, v in launches.items()}}
     print(f"main {path}: " + json.dumps(out), flush=True)
@@ -776,7 +1025,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.profiling import bench_config, slice_config
+    from dispersy_tpu_torch.profiling import (POST, bench_config,
+                                              one_record_schedule,
+                                              permissioned_config,
+                                              permissioned_schedule,
+                                              slice_config)
 
     t_start = time.perf_counter()
     card = card_line()
@@ -796,17 +1049,30 @@ def main() -> int:
                                 if not k.endswith(".ptxas")), flush=True)
 
     legacy, diet = slice_config(N_PEERS), bench_config(N_PEERS)
+    perm = permissioned_config(N_PEERS)
     rows = (kernel_phase(legacy, KERNEL_CHECKS, "legacy", SEED, REPS)
-            + kernel_phase(diet, DIET_KERNEL_CHECKS, "diet", SEED, REPS))
+            + kernel_phase(diet, DIET_KERNEL_CHECKS, "diet", SEED, REPS)
+            + kernel_phase(perm, PERM_KERNEL_CHECKS, "permissioned", SEED,
+                           REPS))
     print(f"kernels checked ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
-    parity_phase(slice_config(PARITY_PEERS), SEED, PARITY_ROUNDS)
-    parity_phase(bench_config(PARITY_PEERS), SEED, DIET_PARITY_ROUNDS)
+    parity_phase(slice_config(PARITY_PEERS), SEED, PARITY_ROUNDS,
+                 one_record_schedule(PARITY_PEERS))
+    parity_phase(bench_config(PARITY_PEERS), SEED, DIET_PARITY_ROUNDS,
+                 one_record_schedule(PARITY_PEERS))
+    parity_phase(permissioned_config(PARITY_PEERS), SEED, PERM_PARITY_ROUNDS,
+                 permissioned_schedule(PARITY_PEERS))
+    one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
-                           DIET_ROUNDS),
+                           DIET_ROUNDS, one, (64, 2, 1, 64)),
         "legacy": main_phase(legacy, "legacy", LEGACY_PATH, SEED, WARMUP,
-                             ROUNDS)}
+                             ROUNDS, one, (64, 2, 1, 64)),
+        # The post of peer 64 (meta 0, public): meta 1 is protected here.
+        "permissioned": main_phase(
+            perm, "permissioned", PERM_PATH, SEED, WARMUP, ROUNDS,
+            permissioned_schedule(N_PEERS, destroy=False),
+            (64, 2, POST, 64))}
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

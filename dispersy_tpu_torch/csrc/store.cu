@@ -5,9 +5,10 @@
 //
 // Replaces dispersy_tpu/ops/store.py:265 `store_insert`: its merge form
 // (`_merge_ordered` :425, picked on the TPU above M + B = 128) and its
-// sort form (`_sort_ordered` :385), followed by the rank compaction of
-// `rank_compact_many` (:140).  LastSync `history` is not taken: the
-// wrapper raises for it.  The aux column is u32, or u16 under the
+// sort form (`_sort_ordered` :385), followed by LastSync `history`
+// (:328-345: after the dup kill, evict every record with at least k newer
+// live records in its (member, meta) group) and the rank compaction of
+// `rank_compact_many` (:140).  The aux column is u32, or u16 under the
 // byte-diet store's aux_bits=16 (store, batch and output alike).
 //
 // Bound on the H100: bytes.  The function reads six [N, M] columns (18 B
@@ -24,13 +25,19 @@
 // predecessor, a ballot and popcount for the compaction rank, and a
 // direct copy of the surviving record's six columns from its source row
 // into output slot `rank`.  Slots past the survivors are filled with the
-// empty record.
+// empty record.  With a history (per-meta k, at most MAX_META metas,
+// passed by value in the kernel's arguments), a first walk marks each sorted position live (not empty, not a dup) in
+// shared memory; then each live lane whose meta keeps k > 0 counts the
+// live entries of the row with its (member, meta) and a higher gt, and
+// dies when the count reaches k: O(W^2) compares per row in shared
+// memory, the JAX package's [W, W] pairwise form.
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int WMAX = 256;  // M + B
+constexpr int MAX_META = 24;  // config.MAX_USER_META
 
 struct Cols6 {
   const uint32_t* gt;
@@ -39,6 +46,10 @@ struct Cols6 {
   const uint32_t* payload;
   const void* aux;  // u32, or u16 when aux2
   const uint8_t* flags;
+};
+
+struct History {  // LastSync keep-last-k per user meta (0: keep all)
+  int32_t k[MAX_META];
 };
 
 struct Out6 {
@@ -73,11 +84,13 @@ __device__ __forceinline__ int warp_sum(int v) {
 
 __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
                                  long long n, int m, int b, bool aux2,
-                                 Out6 o, int32_t* n_inserted,
-                                 int32_t* n_dropped,
+                                 History hist, int n_hist, Out6 o,
+                                 int32_t* n_inserted, int32_t* n_dropped,
                                  int32_t* n_evicted) {
   __shared__ uint32_t kg[WARPS][WMAX];
   __shared__ uint32_t km[WARPS][WMAX];
+  __shared__ uint8_t kt[WARPS][WMAX];  // meta, by concat index
+  __shared__ uint8_t lv[WARPS][WMAX];  // live, by sorted position
   __shared__ int perm[WARPS][WMAX];  // sorted position -> concat index
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = blockIdx.x * (long long)WARPS + w;
@@ -87,19 +100,23 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
   int before = 0, new_valid = 0;
   for (int i = lane; i < width; i += 32) {
     uint32_t g, mb;
+    uint8_t mt;
     if (i < m) {
       g = s.gt[row * m + i];
       mb = s.member[row * m + i];
+      mt = s.meta[row * m + i];
       before += g != dk::EMPTY_U32;
     } else {
       const long long j = row * b + (i - m);
       const bool ok = mask[j];
       g = ok ? bt.gt[j] : dk::EMPTY_U32;
       mb = ok ? bt.member[j] : dk::EMPTY_U32;
+      mt = ok ? bt.meta[j] : 0xFF;
       new_valid += g != dk::EMPTY_U32;
     }
     kg[w][i] = g;
     km[w][i] = mb;
+    kt[w][i] = mt;
   }
   __syncwarp();
   for (int i = lane; i < width; i += 32) {
@@ -112,6 +129,18 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
     perm[w][r] = i;
   }
   __syncwarp();
+  if (n_hist > 0) {
+    for (int p = lane; p < width; p += 32) {
+      const int i = perm[w][p];
+      bool live = kg[w][i] != dk::EMPTY_U32;
+      if (live && p > 0) {
+        const int ip = perm[w][p - 1];
+        live = !(kg[w][i] == kg[w][ip] && km[w][i] == km[w][ip]);
+      }
+      lv[w][p] = live;
+    }
+    __syncwarp();
+  }
 
   int kept = 0;  // warp-uniform running survivor count
   int ins = 0, old_kept = 0;
@@ -128,6 +157,17 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
         dup = g == kg[w][ip] && km[w][i] == km[w][ip] && g != dk::EMPTY_U32;
       }
       keep = g != dk::EMPTY_U32 && !dup;
+      const int mt = kt[w][i];
+      const int k = mt < n_hist ? hist.k[mt] : 0;
+      if (keep && k > 0) {
+        int newer = 0;
+        for (int q = 0; q < width; ++q) {
+          const int iq = perm[w][q];
+          newer += lv[w][q] && km[w][iq] == km[w][i] && kt[w][iq] == mt &&
+                   kg[w][iq] > g;
+        }
+        keep = newer < k;
+      }
     }
     const unsigned bal = __ballot_sync(dk::FULL_MASK, keep);
     const int r = kept + __popc(bal & ((1u << lane) - 1u));
@@ -168,23 +208,29 @@ __global__ void dk_insert_kernel(Cols6 s, Cols6 bt, const bool* mask,
 
 }  // namespace
 
-// aux_size: bytes of one aux element (4, or 2 under aux_bits=16).
+// aux_size: bytes of one aux element (4, or 2 under aux_bits=16).  hist:
+// a host array of the n_hist per-meta keep-last-k values (n_hist 0: no
+// LastSync meta), copied into the kernel's arguments.
 DK_EXPORT int dk_store_insert(
     const uint32_t* s_gt, const uint32_t* s_member, const uint8_t* s_meta,
     const uint32_t* s_payload, const void* s_aux, const uint8_t* s_flags,
     const uint32_t* b_gt, const uint32_t* b_member, const uint8_t* b_meta,
     const uint32_t* b_payload, const void* b_aux, const uint8_t* b_flags,
     const bool* mask, long long n, long long m, long long b,
-    long long aux_size, uint32_t* o_gt, uint32_t* o_member, uint8_t* o_meta,
+    long long aux_size, const int32_t* hist, long long n_hist,
+    uint32_t* o_gt, uint32_t* o_member, uint8_t* o_meta,
     uint32_t* o_payload, void* o_aux, uint8_t* o_flags, int32_t* counts,
     cudaStream_t stream) {
   if (m < 1 || b < 0 || m + b > WMAX) return cudaErrorInvalidValue;
   if (aux_size != 2 && aux_size != 4) return cudaErrorInvalidValue;
+  if (n_hist < 0 || n_hist > MAX_META) return cudaErrorInvalidValue;
+  History h{};
+  for (int i = 0; i < n_hist; ++i) h.k[i] = hist[i];
   const Cols6 s{s_gt, s_member, s_meta, s_payload, s_aux, s_flags};
   const Cols6 bt{b_gt, b_member, b_meta, b_payload, b_aux, b_flags};
   const Out6 o{o_gt, o_member, o_meta, o_payload, o_aux, o_flags};
   LAUNCH(dk_insert_kernel, dk::blocks_for(n, WARPS), WARPS * 32, 0, stream)(
       s, bt, mask, n, static_cast<int>(m), static_cast<int>(b), aux_size == 2,
-      o, counts, counts + n, counts + 2 * n);
+      h, static_cast<int>(n_hist), o, counts, counts + n, counts + 2 * n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,11 @@ buffer, wrap-up.  Every random choice is a counter hash (:mod:`ops.rng`),
 so the port equals ``dispersy_tpu.engine.step`` on every leaf.
 
 The slice covers configs whose planes and protocol feature flags sit at
-their defaults (:func:`check_slice`); any other config raises
+their defaults (:func:`check_slice`) except the permission engine: the
+Timeline (authorize / revoke with delegation chains, DynamicResolution
+flips, undo-own and undo-other, destroy, and the retroactive re-walk
+after a revoke) on the legacy ring, LastSync keep-last-k, and per-meta
+priorities and DESC sync; any other config raises
 ``NotImplementedError`` before a round starts.  The store is the legacy
 ring (merged every round) or the byte-diet store (``store.staging > 0``,
 :mod:`storediet`): arrivals land in a staging buffer, the Bloom claim
@@ -18,7 +22,9 @@ is a persistent digest salted with an epoch, and the sync exchange and
 compaction run on sync rounds only -- for one cohort of peers at a time
 under ``store.cohorts > 1``.  The JAX package chooses a round's phase
 with a ``lax.cond`` on the round counter; here :func:`step` reads the
-round index to the host once per round instead.  The hot ops go through
+round index to the host once per round instead.  The Timeline's retro
+pass is the JAX package's other ``lax.cond``: here its trigger is read
+to the host, once per round.  The hot ops go through
 the wrappers of :mod:`ops` — plain PyTorch for a CPU state, the
 hand-written kernels for a CUDA state.
 
@@ -29,26 +35,32 @@ staging buffer and the forward buffer stay in their ``torch.uint32`` /
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from dispersy_tpu_torch import storediet as sdiet
-from dispersy_tpu_torch.config import (EMPTY_META, EMPTY_U32,
+from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
+                                       EMPTY_U32, IDENTITY_PRIORITY,
                                        INTRO_REQUEST_BASE_BYTES,
                                        INTRO_RESPONSE_BYTES, META_AUTHORIZE,
                                        META_DESTROY, META_DYNAMIC,
-                                       META_REVOKE, META_UNDO_OTHER,
-                                       META_UNDO_OWN, NO_PEER,
-                                       PUNCTURE_BYTES, PUNCTURE_REQUEST_BYTES,
-                                       RECORD_BYTES, CommunityConfig)
+                                       META_IDENTITY, META_REVOKE,
+                                       META_UNDO_OTHER, META_UNDO_OWN,
+                                       NO_PEER, PERM_AUTHORIZE, PERM_REVOKE,
+                                       PERM_UNDO, PUNCTURE_BYTES,
+                                       PUNCTURE_REQUEST_BYTES, RECORD_BYTES,
+                                       CommunityConfig, user_perm_mask)
 from dispersy_tpu_torch.ops import bloom
 from dispersy_tpu_torch.ops import candidates as cand
 from dispersy_tpu_torch.ops import inbox, intake, rng
 from dispersy_tpu_torch.ops import store as st
+from dispersy_tpu_torch.ops import timeline as tl
 from dispersy_tpu_torch.ops.hashing import record_hash
 from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
                                        TelemetryConfig, TraceConfig)
-from dispersy_tpu_torch.state import NEVER, PeerState
+from dispersy_tpu_torch.state import FLAG_UNDONE, NEVER, PeerState
 from dispersy_tpu_torch.u32 import (MASK, bits, cast, narrow, narrow16,
                                     unbits, wide, zeros)
 
@@ -66,12 +78,15 @@ _TRACKER_INTRO_SALT = 1 << 20
 _COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
              "requests_dropped", "punctures", "msgs_forwarded", "bytes_up",
              "bytes_down", "accepted_by_meta")
+# ... and the Timeline's (zero-width leaves without it).
+_TIMELINE_COUNTERS = ("msgs_rejected", "auth_unwound", "msgs_retro")
 
 
 def check_slice(cfg: CommunityConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
     is off the ported slice (the legacy or byte-diet store, every plane
-    and protocol feature flag at its default, public NAT)."""
+    and protocol feature flag at its default but the Timeline, LastSync
+    history, meta priorities and DESC sync; public NAT)."""
     off = [
         ("sync_enabled", cfg.store_diet and not cfg.sync_enabled),
         ("faults", cfg.faults != FaultModel()),
@@ -81,7 +96,6 @@ def check_slice(cfg: CommunityConfig) -> None:
         ("overload", cfg.overload != OverloadConfig()),
         ("parallel", cfg.parallel != ParallelConfig()),
         ("communities", bool(cfg.communities)),
-        ("timeline_enabled", cfg.timeline_enabled),
         ("delay_inbox", cfg.delay_inbox > 0),
         ("proof_requests", cfg.proof_requests),
         ("seq_requests", cfg.seq_requests),
@@ -92,9 +106,6 @@ def check_slice(cfg: CommunityConfig) -> None:
         ("malicious_enabled", cfg.malicious_enabled),
         ("malicious_gossip", cfg.malicious_gossip),
         ("double_meta_mask", bool(cfg.double_meta_mask)),
-        ("last_sync_history", cfg.any_last_sync),
-        ("meta_priority", len(set(cfg.priorities)) > 1),
-        ("desc_meta_mask", bool(cfg.desc_meta_mask)),
         ("direct_meta_mask", bool(cfg.direct_meta_mask)),
         ("seq_meta_mask", bool(cfg.seq_meta_mask)),
         ("p_symmetric", cfg.p_symmetric > 0.0),
@@ -104,8 +115,9 @@ def check_slice(cfg: CommunityConfig) -> None:
             raise NotImplementedError(
                 f"CommunityConfig.{name} is off the ported slice (the "
                 "legacy-store and byte-diet rounds with every optional "
-                "plane and feature flag at its default; the diet needs "
-                "sync_enabled)")
+                "plane and feature flag at its default but the Timeline, "
+                "LastSync history, meta priorities and DESC sync; the diet "
+                "needs sync_enabled)")
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -193,6 +205,255 @@ def _staging(state: PeerState) -> st.StoreCols:
 _STORE_FILLS = (EMPTY_U32, EMPTY_U32, EMPTY_META, EMPTY_U32, 0, 0)
 
 
+# ---- the Timeline's helpers ---------------------------------------------------
+
+def _auth(state: PeerState) -> tl.AuthTable:
+    return tl.AuthTable(member=state.auth_member, mask=state.auth_mask,
+                        gt=state.auth_gt, rev=state.auth_rev,
+                        issuer=state.auth_issuer)
+
+
+def _founder_col(cfg: CommunityConfig, dev) -> torch.Tensor:
+    """u32[N]: the founder each row answers to (one community:
+    ``cfg.founder``)."""
+    return _u32(cfg.founder, dev).expand(cfg.n_peers)
+
+
+def killed_mask(store_meta: torch.Tensor) -> torch.Tensor:
+    """bool[N]: which peers are hard-killed (their store holds the
+    founder's dispersy-destroy-community record)."""
+    return (store_meta == META_DESTROY).any(dim=1)
+
+
+def _priority_vec(cfg: CommunityConfig, meta: torch.Tensor) -> torch.Tensor:
+    """int64 serving / forwarding priority per record: the declared
+    per-meta priorities for user metas, IDENTITY_PRIORITY for
+    dispersy-identity, CONTROL_PRIORITY otherwise."""
+    m = meta.to(torch.int64)
+    prio = torch.tensor(cfg.priorities, dtype=torch.int64, device=m.device)
+    return torch.where(m < cfg.n_meta, prio[m.clamp(max=cfg.n_meta - 1)],
+                       torch.where(m == META_IDENTITY, IDENTITY_PRIORITY,
+                                   CONTROL_PRIORITY))
+
+
+def _response_order(stc: st.StoreCols, cfg: CommunityConfig) -> st.StoreCols:
+    """The sync responder's serving order over a store: priority DESC,
+    then global time ASC or DESC per meta (the JAX package's 4-key sort
+    on (255 - priority, gt or ~gt, gt, member), empty slots last).  The
+    keys make every live record distinct (UNIQUE(member, gt)) and every
+    empty slot the same record, so three stable sorts -- member, gt, then
+    the packed (255 - priority, gt or ~gt) -- give the same order.
+    Identity when the community declares no ordering."""
+    if not cfg.needs_response_order:
+        return stc
+    g = wide(stc.gt)
+    valid = g != EMPTY_U32
+    meta = stc.meta.to(torch.int64)
+    # 256 stands for the empty key (EMPTY_U32): every priority is <= 255.
+    key1 = torch.where(valid, 255 - _priority_vec(cfg, stc.meta), 256)
+    desc = (((cfg.desc_meta_mask >> meta.clamp(max=31)) & 1) == 1) \
+        & (meta < cfg.n_meta)
+    key2 = torch.where(desc, g ^ MASK, g)
+    perm = torch.sort(wide(stc.member), dim=-1, stable=True).indices
+    for key in (g, (key1 << 32) | key2):
+        order = torch.sort(torch.gather(key, -1, perm), dim=-1,
+                           stable=True).indices
+        perm = torch.gather(perm, -1, order)
+    return st.StoreCols(*(unbits(torch.gather(bits(c), -1, perm), c.dtype)
+                          for c in stc))
+
+
+def _author_linear(state: PeerState, cfg: CommunityConfig, meta: int,
+                   gt_at: torch.Tensor) -> torch.Tensor:
+    """bool[N]: is user meta ``meta`` LinearResolution at ``gt_at`` (u32
+    [N]) per each row's own stored dynamic-settings flips (the static
+    protected bit when no flip applies or the meta is not dynamic)."""
+    n, dev = cfg.n_peers, state.device
+    static = bool((cfg.protected_meta_mask >> meta) & 1)
+    if not (meta < cfg.n_meta and (cfg.dynamic_meta_mask >> meta) & 1):
+        return torch.full((n,), static, dtype=torch.bool, device=dev)
+    best = wide(intake.flip_best(_store(state), _u32(meta, dev).expand(n, 1),
+                                 gt_at[:, None])[:, 0])
+    return torch.where(best > 0, (best & 1) == 1, static)
+
+
+def _empty_auth(n: int, a: int, dev) -> tl.AuthTable:
+    def u32(fill):
+        return unbits(st.fill_bits((n, a), fill, torch.uint32, dev),
+                      torch.uint32)
+    return tl.AuthTable(member=u32(EMPTY_U32), mask=u32(0), gt=u32(0),
+                        rev=torch.zeros((n, a), dtype=torch.bool,
+                                        device=dev),
+                        issuer=u32(EMPTY_U32))
+
+
+def _rebuild_valid_table(stc: st.StoreCols, cfg: CommunityConfig,
+                         founder_col: torch.Tensor, a_slots: int):
+    """(table, rows_unwound i32[N]): the auth table as a pure function of
+    the store -- every stored authorize/revoke record folded in store
+    order into an empty top-A window, re-walked (``tl.revalidate``) and
+    compacted (survivors left, order kept)."""
+    n = stc.gt.shape[0]
+    is_rev_row = stc.meta == META_REVOKE
+    is_crow = (stc.meta == META_AUTHORIZE) | is_rev_row
+    auth = tl.fold(_empty_auth(n, a_slots, stc.gt.device),
+                   target=stc.payload,
+                   mask=narrow(wide(stc.aux) & user_perm_mask(cfg.n_meta)),
+                   gt=stc.gt, is_revoke=is_rev_row, valid=is_crow,
+                   issuer=stc.member).table
+    keep = tl.revalidate(auth, founder_col, cfg.n_meta)
+    live = bits(auth.member) != -1
+    n_unwound = (live & ~keep).sum(-1, dtype=torch.int32)
+    rank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
+    slot = torch.where(keep, rank, a_slots)
+    auth = tl.AuthTable(*st.rank_compact_many(
+        [(auth.member, EMPTY_U32), (auth.mask, 0), (auth.gt, 0),
+         (auth.rev, False), (auth.issuer, EMPTY_U32)], slot, a_slots))
+    return auth, n_unwound
+
+
+def _protected_now(meta: torch.Tensor, cfg: CommunityConfig,
+                   best) -> torch.Tensor:
+    """bool: is each record's meta LinearResolution at its own gt --
+    the static protected bit, replaced for dynamic metas by the
+    policy of the highest-gt flip at or below it (``best``: the
+    ``gt * 2 | policy`` key, 0 for none)."""
+    m = meta.to(torch.int64)
+    shift = m.clamp(max=31)
+    protected = (((cfg.protected_meta_mask >> shift) & 1) == 1) & (m < 32)
+    if cfg.dynamic_meta_mask:
+        is_dyn = (((cfg.dynamic_meta_mask >> shift) & 1) == 1) \
+            & (m < cfg.n_meta)
+        b = wide(best)
+        linear_now = torch.where(b > 0, (b & 1) == 1, protected)
+        protected = torch.where(is_dyn, linear_now, protected)
+    return protected
+
+
+class _Checked(NamedTuple):
+    auth: tl.AuthTable            # the table after both fold passes
+    accept: torch.Tensor          # bool[N, B]
+    flags: torch.Tensor           # u8[N, B] the batch's pre-undone flags
+    is_undo: torch.Tensor         # bool[N, B]
+    fold_lost: torch.Tensor       # int64[N] rows dropped or evicted
+    retro_trigger: torch.Tensor   # bool 0-dim: a fresh revoke or eviction
+
+
+def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
+                     batch: st.StoreCols, cfg: CommunityConfig, in_ok,
+                     in_store, dup_in_batch, founder) -> _Checked:
+    """The receive pipeline's permission check over the [N, B] batch,
+    against the receiver's store and table (the JAX package's intake
+    check block).  Control records carry their own authority rule: the
+    founder (destroy, and the root of grants), the undoer itself
+    (undo-own), or a chain.  Freshly learned authorize / revoke records
+    fold first -- pass A the founder's, then the delegated ones that
+    ``check_grant`` validates against the updated table (pass B) -- so a
+    grant and a record it permits can land in one batch.  Then
+    undo-other needs the UNDO bit on the target's stored meta, a flip the
+    AUTHORIZE bit on its meta, and a protected user record (LinearResolution
+    at its gt, replayed from the stored and this batch's flips) a permit.
+    ``founder`` is a u32 [N, 1] column."""
+    member, meta, payload, gt, aux = (batch.member, batch.meta, batch.payload,
+                                      batch.gt, batch.aux)
+    is_auth = meta == META_AUTHORIZE
+    is_rev = meta == META_REVOKE
+    is_undo_own = meta == META_UNDO_OWN
+    is_undo_other = meta == META_UNDO_OTHER
+    is_undo = is_undo_own | is_undo_other
+    is_flip = meta == META_DYNAMIC
+    is_ctrl = is_auth | is_rev | is_undo | is_flip | (meta == META_DESTROY)
+    ctrl_ok0 = torch.where(is_undo_own, bits(member) == bits(payload),
+                           bits(member) == bits(founder))
+    fresh0 = in_ok & ~in_store & ~dup_in_batch
+    grant_mask = narrow(wide(aux) & user_perm_mask(cfg.n_meta))
+    is_grant = is_auth | is_rev
+    fr = tl.fold(auth, target=payload, mask=grant_mask, gt=gt,
+                 is_revoke=is_rev, valid=fresh0 & is_grant & ctrl_ok0,
+                 issuer=member)
+    auth = fr.table
+    deleg_ok = is_grant & ~ctrl_ok0 & torch.where(
+        is_rev,
+        tl.check_grant(auth, member, grant_mask, gt, cfg.n_meta,
+                       perm=PERM_REVOKE),
+        tl.check_grant(auth, member, grant_mask, gt, cfg.n_meta,
+                       perm=PERM_AUTHORIZE))
+    fr2 = tl.fold(auth, target=payload, mask=grant_mask, gt=gt,
+                  is_revoke=is_rev, valid=fresh0 & deleg_ok, issuer=member)
+    auth = fr2.table
+    undo_tmeta = intake.stored_meta_of(stc, payload, aux)
+    undo_ok = is_undo_other & tl.check(auth, member, undo_tmeta, gt, founder,
+                                       perm=PERM_UNDO)
+    flip_grant_ok = is_flip & tl.check(auth, member, payload, gt, founder,
+                                       perm=PERM_AUTHORIZE)
+    ctrl_ok = ctrl_ok0 | deleg_ok | undo_ok | flip_grant_ok
+    best = None
+    if cfg.dynamic_meta_mask:
+        flip_ok = fresh0 & is_flip & (ctrl_ok0 | flip_grant_ok)
+        best = narrow(torch.maximum(
+            wide(intake.flip_best(stc, meta, gt)),
+            wide(intake.flip_best_batch(flip_ok, payload, gt, aux, meta,
+                                        gt))))
+    protected = _protected_now(meta, cfg, best)
+    permitted = tl.check(auth, member, meta, gt, founder)
+    accept = in_ok & torch.where(is_ctrl, ctrl_ok,
+                                 torch.where(protected, permitted, True))
+    # Arrivals whose undo is already stored come in pre-undone.
+    pre_undone = (meta < 32) & intake.undo_marked(stc, member, gt)
+    flags = torch.where(pre_undone, FLAG_UNDONE, 0).to(torch.uint8)
+    evicted = fr.n_evicted + fr2.n_evicted
+    lost = (fr.n_dropped + fr2.n_dropped + evicted).to(torch.int64)
+    trigger = ((fresh0 & is_rev & (ctrl_ok0 | deleg_ok)).any()
+               | (evicted > 0).any())
+    return _Checked(auth, accept, flags, is_undo, lost, trigger)
+
+
+def _retro_pass(auth: tl.AuthTable, stc: st.StoreCols, cfg: CommunityConfig,
+                founder_col: torch.Tensor):
+    """The retroactive permission re-walk after a revoke folds (or a
+    table eviction): rebuild the table from the store, remove the stored
+    control records whose authority is gone (authorize / revoke by the
+    chain rule, flips by the AUTHORIZE bit), then the protected user
+    records no longer permitted, then the undo-other records whose undoer
+    or target is gone; re-derive the undone marks and rebuild the table
+    from the pruned store.  Returns (auth', store', rows_unwound,
+    records_removed), each count i32[N]."""
+    a_slots = auth.member.shape[-1]
+    auth, n_unwound = _rebuild_valid_table(stc, cfg, founder_col, a_slots)
+    fcol = founder_col[:, None]
+    user_aux = narrow(wide(stc.aux) & user_perm_mask(cfg.n_meta))
+    by_founder = bits(stc.member) == bits(fcol)
+    ok_auth = by_founder | tl.check_grant(auth, stc.member, user_aux, stc.gt,
+                                          cfg.n_meta, perm=PERM_AUTHORIZE)
+    ok_rev = by_founder | tl.check_grant(auth, stc.member, user_aux, stc.gt,
+                                         cfg.n_meta, perm=PERM_REVOKE)
+    kill = (((stc.meta == META_AUTHORIZE) & ~ok_auth)
+            | ((stc.meta == META_REVOKE) & ~ok_rev))
+    if cfg.dynamic_meta_mask:
+        ok_flip = tl.check(auth, stc.member, stc.payload, stc.gt, fcol,
+                           perm=PERM_AUTHORIZE)
+        kill = kill | ((stc.meta == META_DYNAMIC) & ~ok_flip)
+    r1 = st.store_remove(stc, kill)
+    stc = r1.store
+    best = (intake.flip_best(stc, stc.meta, stc.gt)
+            if cfg.dynamic_meta_mask else None)
+    protected = _protected_now(stc.meta, cfg, best)
+    permitted = tl.check(auth, stc.member, stc.meta, stc.gt, fcol)
+    r2 = st.store_remove(stc, protected & ~permitted)
+    stc = r2.store
+    undo_tmeta = intake.stored_meta_of(stc, stc.payload, stc.aux)
+    ok_undo = tl.check(auth, stc.member, undo_tmeta, stc.gt, fcol,
+                       perm=PERM_UNDO)
+    r3 = st.store_remove(stc, (stc.meta == META_UNDO_OTHER) & ~ok_undo)
+    stc = r3.store
+    um = intake.undo_marked(stc, stc.member, stc.gt) & (stc.meta < 32)
+    stc = stc._replace(flags=torch.where(um, stc.flags | FLAG_UNDONE,
+                                         stc.flags & (0xFF ^ FLAG_UNDONE)))
+    auth, _ = _rebuild_valid_table(stc, cfg, founder_col, a_slots)
+    return (auth, stc, n_unwound,
+            r1.n_removed + r2.n_removed + r3.n_removed)
+
+
 def _u32(v: int, dev) -> torch.Tensor:
     """A 0-dim ``torch.uint32`` (a host-int salt)."""
     return narrow(torch.tensor(v & MASK, dtype=torch.int64, device=dev))
@@ -226,7 +487,7 @@ def _req_bytes_in(req_bytes, ok: torch.Tensor,
 def _stats_out(state: PeerState, acc: dict):
     """Fold the round's int64 counter deltas into the u32 stats."""
     upd = {name: narrow(wide(getattr(state.stats, name)) + acc[name])
-           for name in _COUNTERS}
+           for name in acc}
     return state.stats.replace(**upd)
 
 
@@ -279,6 +540,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     acc = {name: z64.clone() for name in _COUNTERS}
     acc["accepted_by_meta"] = torch.zeros((n, cfg.n_meta + 1),
                                           dtype=torch.int64, device=dev)
+    tline = cfg.timeline_enabled
+    if tline:
+        acc.update({name: z64.clone() for name in _TIMELINE_COUNTERS})
     bup, bdown = z64.clone(), z64.clone()
     rng_range = cfg.acceptable_global_time_range
     # Byte-diet store (storediet.py): arrivals land in the staging buffer,
@@ -320,6 +584,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
            state.fwd_payload, state.fwd_aux)
     global_time, session = wide(state.global_time), wide(state.session)
     loaded = state.loaded
+    auth = _auth(state)
     if cfg.churn_rate > 0.0:
         reborn = state.alive & ~state.is_tracker & (
             rng.rand_uniform(seed, rnd, idx, rng.P_CHURN)
@@ -344,12 +609,21 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                 reborn, sdiet.epoch_of_cohort(cfg, rnd_h, wide(state.cohort)),
                 wide(epoch)))
         fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
+        # The auth table is folded from the (wiped) store: it wipes too.
+        auth = tl.AuthTable(
+            member=_fill(m1, auth.member, EMPTY_U32),
+            mask=_fill(m1, auth.mask, 0), gt=_fill(m1, auth.gt, 0),
+            rev=auth.rev & ~m1, issuer=_fill(m1, auth.issuer, EMPTY_U32))
         global_time = torch.where(reborn, 1, global_time)
         session = session + reborn.to(torch.int64)
         loaded = torch.where(reborn, True, loaded)
     alive = state.alive
     act = alive & loaded            # participating this round
     arrivals = torch.zeros(n, dtype=torch.bool, device=dev)
+    # Hard-kill state: a peer whose (post-churn) store holds the founder's
+    # destroy record walks, authors and takes in nothing, and serves and
+    # pushes only the destroy record.
+    killed = killed_mask(stc.meta) if tline else None
 
     # ---- phase 1: walker send ------------------------------------------
     # dispersy_get_walk_candidate + create_introduction_request; trackers
@@ -358,7 +632,10 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     if cfg.walker_enabled:
         target = cand.sample_walk_target(tab, now, cfg, seed, rnd, idx,
                                          boot_base, boot_count)
-        target = torch.where(act & ~state.is_tracker, target, NO_PEER)
+        walks = act & ~state.is_tracker
+        if tline:
+            walks = walks & ~killed
+        target = torch.where(walks, target, NO_PEER)
     else:
         target = torch.full((n,), NO_PEER, dtype=torch.int32, device=dev)
 
@@ -397,7 +674,11 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                    + torch.arange(c, device=dev)[None, :])[None]
         push_lost = _lost(cfg, seed, rnd, idx[:, None, None], _LOSS_FORWARD,
                           fc_salt)
-        push_sent = act[:, None, None] & have_rec & tgt_ok
+        send_rec_ok = act[:, None]
+        if tline:
+            send_rec_ok = send_rec_ok & (~killed[:, None]
+                                         | (fwd[2] == META_DESTROY))
+        push_sent = send_rec_ok[:, :, None] & have_rec & tgt_ok
         push_valid = push_sent & ~push_lost
         push_dst = fwd_targets[:, None, :].expand(n, f, c).reshape(-1)
         push = inbox.deliver(
@@ -630,8 +911,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             + a_coh
         tgt_blk = tgt[idx_blk]                          # responders
         edge_ok = (req.edge_slot >= 0)[idx_blk]
-        stv = st.StoreCols(*(unbits(bits(c)[tgt_blk], c.dtype)
-                             for c in stc))
+        stv = _response_order(st.StoreCols(
+            *(unbits(bits(c)[tgt_blk], c.dtype) for c in stc)), cfg)
         rec_h2 = narrow(record_hash(stv.member, stv.gt, stv.meta,
                                     stv.payload))
         sl_blk = st.claim_slice_largest(st.cohort_take(stc.gt, a_coh, coh),
@@ -659,29 +940,39 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         bdown = bdown + sy_ok.sum(dim=1) * RECORD_BYTES
     elif sync_on:
         b = cfg.response_budget
-        if diet:
-            # The claim read the digest: hash the ring here, and query
-            # with the epoch salt the requesters' digests carry.
-            rec_h = narrow(record_hash(stc.member, stc.gt, stc.meta,
-                                       stc.payload))
-            q_salt = ep
-        else:
-            q_salt = salt
+        # The responder serves from its ordered view (priority DESC, gt
+        # ASC / DESC per meta; the store itself when nothing is declared).
+        # The diet's claim read the digest, so the ring is hashed here and
+        # queried with the epoch salt the requesters' digests carry.
+        stv = _response_order(stc, cfg)
+        if diet or cfg.needs_response_order:
+            rec_h = narrow(record_hash(stv.member, stv.gt, stv.meta,
+                                       stv.payload))
+        q_salt = ep if diet else salt
+        servable = None
+        if tline:
+            servable = ~killed[:, None] | (stv.meta == META_DESTROY)
         outs = []
         for s in range(r):
             sl_s = st.SyncSlice(time_low=rq_tlow[:, s], time_high=rq_thigh[:, s],
                                 modulo=rq_mod[:, s], offset=rq_off[:, s])
-            in_sl = st.slice_mask(stc.gt, sl_s)
+            in_sl = st.slice_mask(stv.gt, sl_s)
+            if tline:
+                in_sl = in_sl & servable
             present = bloom.bloom_query(rq_bloom[:, s], rec_h,
                                         cfg.bloom_bits, cfg.bloom_hashes,
                                         salt=q_salt)
+            if tline:
+                # A hard-killed responder sends the destroy record
+                # whatever the requester's Bloom filter says.
+                present = present & ~killed[:, None]
             missing = in_sl & ~present & rq_ok[:, s:s + 1]
             rank = torch.cumsum(missing.to(torch.int32), dim=1) - 1
             slot = torch.where(missing & (rank < b), rank, b)
             outs.append(st.rank_compact_many(
-                [(stc.gt, EMPTY_U32), (stc.member, EMPTY_U32),
-                 (stc.meta, EMPTY_META), (stc.payload, EMPTY_U32),
-                 (stc.aux, 0), (missing, False)], slot, b))
+                [(stv.gt, EMPTY_U32), (stv.member, EMPTY_U32),
+                 (stv.meta, EMPTY_META), (stv.payload, EMPTY_U32),
+                 (stv.aux, 0), (missing, False)], slot, b))
         obox = [torch.stack([bits(o[i]) for o in outs], dim=1)
                 for i in range(6)]                            # [N, R, b]
         sy_gt, sy_member, sy_meta, sy_payload, sy_aux = (
@@ -719,6 +1010,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         # Clock-jump defense before the store accepts anything.
         in_ok = in_ok & (wide(in_gt) <= ((global_time[:, None] + rng_range)
                                          & MASK))
+        if tline:
+            # A hard-killed peer takes in nothing at all.
+            in_ok = in_ok & ~killed[:, None]
         # Freshness: not already stored on UNIQUE(member, global_time) and
         # not a duplicate of an earlier record in this batch.  Under the
         # diet "stored" is a query of the epoch digest, so quiet rounds
@@ -732,8 +1026,20 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         else:
             in_store, dup_in_batch = intake.intake_checks(
                 stc.gt, stc.member, in_member, in_gt, in_ok)
-        in_flags = torch.zeros(in_gt.shape, dtype=torch.uint8, device=dev)
-        accept = in_ok
+        batch = st.StoreCols(gt=in_gt, member=in_member, meta=in_meta,
+                             payload=in_payload, aux=in_aux,
+                             flags=torch.zeros(in_gt.shape, dtype=torch.uint8,
+                                               device=dev))
+        if tline:
+            founder_col = _founder_col(cfg, dev)
+            chk = _timeline_intake(auth, stc, batch, cfg, in_ok, in_store,
+                                   dup_in_batch, founder_col[:, None])
+            auth, accept = chk.auth, chk.accept
+            batch = batch._replace(flags=chk.flags)
+            acc["msgs_dropped"] += chk.fold_lost
+            acc["msgs_rejected"] += (in_ok & ~accept).sum(dim=1)
+        else:
+            accept = in_ok
         fresh = accept & ~in_store & ~dup_in_batch           # [N, B]
         bucket = torch.where(in_meta.to(torch.int64) < cfg.n_meta,
                              in_meta.to(torch.int64), cfg.n_meta)
@@ -741,8 +1047,6 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             (bucket[:, :, None] == torch.arange(cfg.n_meta + 1,
                                                 device=dev)[None, None, :])
             & fresh[:, :, None]).sum(dim=1)
-        batch = st.StoreCols(gt=in_gt, member=in_member, meta=in_meta,
-                             payload=in_payload, aux=in_aux, flags=in_flags)
         if diet:
             # Fresh records append to the staging buffer; duplicates and
             # staging overflow count as dropped.  msgs_stored counts at
@@ -767,15 +1071,45 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             acc["msgs_dropped"] += (ins.n_dropped.to(torch.int64)
                                     + ins.n_evicted)
         global_time = _fold_gt(global_time, wide(in_gt), accept, rng_range)
-        # Next round's forward batch = the first F fresh records, aux at
-        # the store's width.
-        rank = torch.cumsum(fresh.to(torch.int32), dim=1) - 1
+        if tline:
+            # This batch's accepted undos mark their targets in the
+            # post-insert store (an undo and its target landing together
+            # still mark); control records are never marked.
+            hit = intake.undo_hits_store(stc, in_payload, in_aux,
+                                         accept & chk.is_undo)
+            hit = hit & (stc.meta < 32)
+            stc = stc._replace(flags=torch.where(
+                hit, stc.flags | FLAG_UNDONE, stc.flags))
+        # Next round's forward batch = F fresh records, aux at the store's
+        # width: the first F in batch order, or under a timeline or mixed
+        # priorities the F highest-priority ones (ties by batch order).
+        if cfg.needs_priority_forward:
+            pos = torch.arange(bb, device=dev)
+            okey = torch.where(
+                fresh, (255 - _priority_vec(cfg, in_meta)) * 4096 + pos,
+                EMPTY_U32)
+            # The keys of fresh records are distinct: a record's rank
+            # among them is its place in the sorted order.
+            order = torch.sort(okey, dim=1, stable=True).indices
+            rank = torch.empty_like(order).scatter_(
+                1, order, pos.expand(n, bb).contiguous())
+        else:
+            rank = torch.cumsum(fresh.to(torch.int32), dim=1) - 1
         fslot = torch.where(fresh & (rank < fb), rank, fb)
         fwd = tuple(st.rank_compact_many(
             [(col, st.empty_of(col.dtype))
              for col in (in_gt, in_member, in_meta, in_payload,
                          cast(in_aux, state.fwd_aux.dtype))],
             fslot, fb))
+        if tline:
+            # The retro re-walk runs when a fresh revoke folded, or a
+            # table eviction displaced a row, anywhere this round (the
+            # JAX package's lax.cond; one host read here).
+            if bool(chk.retro_trigger.item()):
+                auth, stc, n_unw, n_ret = _retro_pass(auth, stc, cfg,
+                                                      founder_col)
+                acc["auth_unwound"] += n_unw
+                acc["msgs_retro"] += n_ret
     else:
         fwd = tuple(
             unbits(st.fill_bits((n, fb), st.empty_of(dt), dt, dev), dt)
@@ -840,6 +1174,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         **diet_leaves,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
+        auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
+        auth_rev=auth.rev, auth_issuer=auth.issuer,
         stats=_stats_out(state, acc),
         time=now + _f32(cfg.walk_interval, dev),
         round_index=narrow(rnd + 1),
@@ -864,23 +1200,42 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     """Application send: each masked (and loaded) peer authors one record,
     claims global_time + 1, stores it locally and puts it in its forward
     buffer (displacing the newest relayed entry when the buffer is full).
+
+    Control metas (authorize, revoke, undo-own, undo-other,
+    dynamic-settings, destroy) need ``timeline_enabled``.  Under a
+    timeline the author side of the permission check runs first: each
+    control meta's authority rule, and a permit in the author's own table
+    for a protected (or currently LinearResolution dynamic) meta; a
+    hard-killed peer authors nothing.  An accepted authorize / revoke
+    folds into the author's own table at once (with the retro re-walk on
+    a revoke or an eviction), and an undo marks its target in the
+    author's own store.
     """
     check_slice(cfg)
-    if meta in (META_AUTHORIZE, META_REVOKE, META_UNDO_OWN, META_UNDO_OTHER,
-                META_DYNAMIC, META_DESTROY):
+    control = meta in (META_AUTHORIZE, META_REVOKE, META_UNDO_OWN,
+                       META_UNDO_OTHER, META_DYNAMIC, META_DESTROY)
+    if control and not cfg.timeline_enabled:
         raise ValueError(
             f"meta {meta:#x} is a permission control message; it needs "
-            "timeline_enabled=True, which is off the ported slice")
+            "timeline_enabled=True (declare a Linear/DynamicResolution "
+            "meta or set the flag)")
     n = cfg.n_peers
     dev = state.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
+    idx_u32 = narrow(idx)
     aux = (torch.zeros(n, dtype=torch.int64, device=dev) if aux is None
            else wide(torch.as_tensor(aux, device=dev)).reshape(n))
     payload = wide(torch.as_tensor(payload, device=dev)).reshape(n)
     author_mask = torch.as_tensor(author_mask, device=dev) & state.loaded
     gt_new = wide(state.global_time) + 1
+    auth = _auth(state)
+    stats = {}
+    if cfg.timeline_enabled:
+        author_mask = author_mask & _author_allowed(
+            state, cfg, meta, narrow(payload), narrow(aux), narrow(gt_new))
+        author_mask = author_mask & ~killed_mask(state.store_meta)
     new = st.StoreCols(
-        gt=narrow(gt_new)[:, None], member=narrow(idx)[:, None],
+        gt=narrow(gt_new)[:, None], member=idx_u32[:, None],
         meta=torch.full((n, 1), meta, dtype=torch.uint8, device=dev),
         payload=narrow(payload)[:, None], aux=narrow(aux)[:, None],
         flags=torch.zeros((n, 1), dtype=torch.uint8, device=dev))
@@ -899,6 +1254,33 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
         diet_leaves["digest"] = bloom.digest_update(
             state.digest, new_h, author_mask[:, None], cfg.bloom_bits,
             cfg.bloom_hashes, salt=salt)
+    if cfg.timeline_enabled and meta in (META_AUTHORIZE, META_REVOKE):
+        # The author's own table learns its grant / revoke now; a revoke
+        # (its gt may sit below rows the table already holds) or an
+        # eviction re-walks the table and the store (one host read).
+        fr = tl.fold(auth, target=new.payload,
+                     mask=narrow(aux & user_perm_mask(cfg.n_meta))[:, None],
+                     gt=new.gt,
+                     is_revoke=torch.full((n, 1), meta == META_REVOKE,
+                                          device=dev),
+                     valid=author_mask[:, None], issuer=new.member)
+        auth = fr.table
+        stats["msgs_dropped"] = (fr.n_dropped + fr.n_evicted).to(torch.int64)
+        trigger = (fr.n_evicted > 0).any()
+        if meta == META_REVOKE:
+            trigger = trigger | author_mask.any()
+        if bool(trigger.item()):
+            auth, stc, n_unw, n_ret = _retro_pass(auth, stc, cfg,
+                                                  _founder_col(cfg, dev))
+            stats["auth_unwound"] = n_unw.to(torch.int64)
+            stats["msgs_retro"] = n_ret.to(torch.int64)
+    if cfg.timeline_enabled and meta in (META_UNDO_OWN, META_UNDO_OTHER):
+        # Mark the target row in the author's own store at once.
+        hit = (author_mask[:, None]
+               & (wide(stc.member) == payload[:, None])
+               & (wide(stc.gt) == aux[:, None]) & (stc.meta < 32))
+        stc = stc._replace(flags=torch.where(hit, stc.flags | FLAG_UNDONE,
+                                             stc.flags))
     fb = cfg.forward_buffer
     fwd = [state.fwd_gt, state.fwd_member, state.fwd_meta,
            state.fwd_payload, state.fwd_aux]
@@ -914,18 +1296,64 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
             fwd, (new.gt, new.member, new.meta, new.payload, new.aux))]
     abm = wide(state.stats.accepted_by_meta)
     abm[:, min(meta, cfg.n_meta)] += author_mask.to(torch.int64)
+    stats["msgs_stored"] = ins.n_inserted.to(torch.int64)
     return state.replace(
         store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
         store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
         **diet_leaves,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
+        auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
+        auth_rev=auth.rev, auth_issuer=auth.issuer,
         global_time=narrow(torch.where(author_mask, gt_new,
                                        wide(state.global_time))),
         stats=state.stats.replace(
-            msgs_stored=narrow(wide(state.stats.msgs_stored)
-                               + ins.n_inserted),
-            accepted_by_meta=narrow(abm)))
+            accepted_by_meta=narrow(abm),
+            **{k: narrow(wide(getattr(state.stats, k)) + v)
+               for k, v in stats.items()}))
+
+
+def _author_allowed(state: PeerState, cfg: CommunityConfig, meta: int,
+                    payload, aux, gt_new) -> torch.Tensor:
+    """bool[N]: the author side of the permission check (u32 [N]
+    ``payload``, ``aux`` and claimed ``gt_new``).  Authorize / revoke: the
+    founder, or the AUTHORIZE / REVOKE bit for every meta of the mask;
+    undo-other: the founder, or the UNDO bit on the target's meta in the
+    author's own store; a flip: the founder, or the AUTHORIZE bit on the
+    flipped meta; destroy: the founder; undo-own: the author itself; a
+    dynamic meta: public at ``gt_new``, or a permit; a protected meta: a
+    permit."""
+    n, dev = cfg.n_peers, state.device
+    auth = _auth(state)
+    me = narrow(torch.arange(n, dtype=torch.int64, device=dev))[:, None]
+    fcol = _founder_col(cfg, dev)
+    is_founder = bits(me[:, 0]) == bits(fcol)
+    q_gt = gt_new[:, None]
+    if meta in (META_AUTHORIZE, META_REVOKE):
+        mask = narrow(wide(aux) & user_perm_mask(cfg.n_meta))[:, None]
+        deleg = tl.check_grant(
+            auth, me, mask, q_gt, cfg.n_meta,
+            perm=PERM_REVOKE if meta == META_REVOKE else PERM_AUTHORIZE)
+        return is_founder | deleg[:, 0]
+    if meta == META_UNDO_OTHER:
+        tmeta = intake.stored_meta_of(_store(state), payload[:, None],
+                                      aux[:, None])
+        return is_founder | tl.check(auth, me, tmeta, q_gt, fcol[:, None],
+                                     perm=PERM_UNDO)[:, 0]
+    if meta == META_DYNAMIC:
+        return is_founder | tl.check(auth, me, payload[:, None], q_gt,
+                                     fcol[:, None], perm=PERM_AUTHORIZE)[:, 0]
+    if meta == META_DESTROY:
+        return is_founder
+    if meta == META_UNDO_OWN:
+        return bits(payload) == bits(me[:, 0])
+    meta_q = _u32(meta, dev).expand(n, 1)
+    if meta < cfg.n_meta and (cfg.dynamic_meta_mask >> meta) & 1:
+        permit = tl.check(auth, me, meta_q, q_gt, fcol[:, None])[:, 0]
+        return ~_author_linear(state, cfg, meta, gt_new) | permit
+    if meta < 32 and (cfg.protected_meta_mask >> meta) & 1:
+        return tl.check(auth, me, meta_q, q_gt, fcol[:, None])[:, 0]
+    return torch.ones(n, dtype=torch.bool, device=dev)
 
 
 def seed_overlay(state: PeerState, cfg: CommunityConfig,

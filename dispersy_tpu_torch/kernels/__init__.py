@@ -4,7 +4,7 @@ The CUDA sources live in ``dispersy_tpu_torch/csrc``.  Each is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/kernels/`` (git-ignored) at first use -- one ``nvcc`` per
 source, all started together -- and loaded with ``ctypes``.  The Triton
-kernel (:mod:`.intake_triton`) is imported only when it is launched.
+kernels (:mod:`.intake_triton`) are imported only when they are launched.
 
 Every wrapper here takes CUDA tensors only: it checks device, dtype,
 shape and contiguity and raises :class:`KernelError` on anything its
@@ -30,21 +30,28 @@ from dispersy_tpu_torch.exceptions import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("deliver", "bloom", "store", "compact", "stage")
+SOURCES = ("deliver", "bloom", "store", "compact", "stage", "timeline",
+           "remove")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # One launch count per kernel, bumped where its wrapper launches it and
 # nowhere else.
 LAUNCHES = {"deliver": 0, "bloom_build": 0, "bloom_query": 0,
-            "digest_update": 0, "store_insert": 0, "rank_compact_many": 0,
-            "store_stage": 0, "intake_checks": 0, "dup_earlier": 0}
+            "digest_update": 0, "store_insert": 0, "store_insert_history": 0,
+            "rank_compact_many": 0, "store_stage": 0, "intake_checks": 0,
+            "dup_earlier": 0, "timeline_check": 0, "timeline_check_grant": 0,
+            "store_match_flip": 0, "store_match_undo_marked": 0,
+            "store_match_meta_of": 0, "store_match_undo_hits": 0,
+            "store_remove": 0}
 _LIBS: dict = {}
 MAX_COLS = 8           # csrc/deliver.cu, csrc/compact.cu MAX_COLS
 DELIVER_MAX_INBOX = 2048   # csrc/deliver.cu SEL_HALF
 STORE_MAX_WIDTH = 256      # csrc/store.cu WMAX (M + B)
 BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
 STAGE_MAX_SLOTS = 32       # csrc/stage.cu MAX_S
+STORE_MAX_HISTORY = 24     # csrc/store.cu MAX_META
+TIMELINE_MAX_SLOTS = 32    # csrc/timeline.cu MAX_A
 
 
 def reset_launches() -> None:
@@ -283,10 +290,12 @@ def _req_cols(cols, name: str, shape, aux_dtypes=_AUX_DT) -> None:
         _req(c, f"{name}[{i}]", (dt,), shape)
 
 
-def store_insert(store, new, new_mask):
-    """Per-row merge, dup kill and fused compaction (csrc/store.cu).
-    Returns the six [N, M] columns and the three i32[N] counts.  The aux
-    column is u32 or u16, the same in ``store`` and ``new``."""
+def store_insert(store, new, new_mask, history: tuple = ()):
+    """Per-row merge, dup kill, LastSync keep-last-k (``history``, per
+    user meta; empty or all zero for none) and fused compaction
+    (csrc/store.cu).  Returns the six [N, M] columns and the three i32[N]
+    counts.  The aux column is u32 or u16, the same in ``store`` and
+    ``new``."""
     n, m = store[0].shape
     b = new[0].shape[1]
     _req_cols(store, "store_insert.store", (n, m))
@@ -295,17 +304,117 @@ def store_insert(store, new, new_mask):
     if m < 1 or m + b > STORE_MAX_WIDTH:
         raise KernelError(f"store_insert: M + B = {m + b} not in "
                           f"[1, {STORE_MAX_WIDTH}]")
+    history = tuple(history) if any(k > 0 for k in history) else ()
+    if len(history) > STORE_MAX_HISTORY:
+        raise KernelError(f"store_insert: {len(history)} history metas > "
+                          f"{STORE_MAX_HISTORY}")
     dev = new_mask.device
+    hist = (ctypes.c_int32 * max(len(history), 1))(*history)
     out = [torch.empty((n, m), dtype=dt, device=dev)
            for dt in _store_dts(store[4].dtype)]
     counts = torch.empty((3, n), dtype=torch.int32, device=dev)
-    err = _fn("store", "dk_store_insert", 25)(
+    err = _fn("store", "dk_store_insert", 27)(
         *[c.data_ptr() for c in store], *[c.data_ptr() for c in new],
         new_mask.data_ptr(), n, m, b, store[4].element_size(),
+        ctypes.addressof(hist), len(history),
         *[c.data_ptr() for c in out], counts.data_ptr(), _stream())
     _check(err, "store", "store_insert")
-    LAUNCHES["store_insert"] += 1
+    LAUNCHES["store_insert_history" if history else "store_insert"] += 1
     return (*out, counts[0], counts[1], counts[2])
+
+
+# ---- K10: store remove -----------------------------------------------------
+
+def store_remove(store, kill):
+    """Delete the masked records, survivors compacted left, one warp per
+    row (csrc/remove.cu).  Returns the six [N, M] columns and the i32[N]
+    removed count."""
+    n, m = store[0].shape
+    _req_cols(store, "store_remove.store", (n, m))
+    _req(kill, "store_remove.kill", (torch.bool,), (n, m))
+    if m < 1:
+        raise KernelError("store_remove: M must be >= 1")
+    dev = kill.device
+    out = [torch.empty((n, m), dtype=dt, device=dev)
+           for dt in _store_dts(store[4].dtype)]
+    n_removed = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _fn("remove", "dk_store_remove", 18)(
+        *[c.data_ptr() for c in store], kill.data_ptr(), n, m,
+        store[4].element_size(), *[c.data_ptr() for c in out],
+        n_removed.data_ptr(), _stream())
+    _check(err, "remove", "store_remove")
+    LAUNCHES["store_remove"] += 1
+    return (*out, n_removed)
+
+
+# ---- K8: timeline check ----------------------------------------------------
+
+def _u32_2d(t, name: str, shape) -> torch.Tensor:
+    """A [N, Q] u32 query operand, broadcast and made contiguous."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise KernelError(f"{name}: expected a CUDA tensor")
+    if t.dtype != torch.uint32:
+        raise KernelError(f"{name}: dtype {t.dtype} is not torch.uint32")
+    return t.view(torch.int32).expand(shape).contiguous().view(torch.uint32)
+
+
+def _timeline(tab, member, key, gt, mode: int, perm: int, n_meta: int,
+              founder, name: str):
+    n, a = tab.member.shape
+    for i, (c, dt) in enumerate(zip(tab[:4], (torch.uint32, torch.uint32,
+                                               torch.uint32, torch.bool))):
+        _req(c, f"{name}.tab[{i}]", (dt,), (n, a))
+    if not 1 <= a <= TIMELINE_MAX_SLOTS:
+        raise KernelError(f"{name}: A = {a} not in "
+                          f"[1, {TIMELINE_MAX_SLOTS}]")
+    shape = torch.broadcast_shapes(member.shape, key.shape, gt.shape)
+    if len(shape) != 2 or shape[0] != n or shape[1] < 1:
+        raise KernelError(f"{name}: queries of shape {tuple(shape)} for "
+                          f"{n} rows")
+    member = _u32_2d(member, f"{name}.member", shape)
+    gt = _u32_2d(gt, f"{name}.gt", shape)
+    if key.dtype == torch.uint8:
+        key = key.expand(shape).contiguous()
+    else:
+        key = _u32_2d(key, f"{name}.key", shape)
+    f_ptr, f_stride, f_val = None, 0, 0
+    if isinstance(founder, torch.Tensor):
+        _req(founder, f"{name}.founder", (torch.uint32,), contiguous=False)
+        if founder.numel() == 1:
+            f_ptr = founder.reshape(1).contiguous()
+        else:
+            f_ptr = founder.reshape(-1).contiguous()
+            if f_ptr.shape[0] != n:
+                raise KernelError(f"{name}: founder column of "
+                                  f"{f_ptr.shape[0]} rows for {n}")
+            f_stride = 1
+    else:
+        f_val = int(founder) & 0xFFFFFFFF
+    out = torch.empty(shape, dtype=torch.bool, device=member.device)
+    err = _fn("timeline", "dk_timeline_check", 19)(
+        *[c.data_ptr() for c in tab[:4]], member.data_ptr(), key.data_ptr(),
+        key.element_size(), gt.data_ptr(), n, shape[1], a, mode, perm,
+        n_meta, None if f_ptr is None else f_ptr.data_ptr(), f_stride,
+        f_val, out.data_ptr(), _stream())
+    _check(err, "timeline", name)
+    return out
+
+
+def timeline_check(tab, member, meta, gt, founder, perm: int):
+    """K8 ``check``: bool [N, Q] (csrc/timeline.cu).  ``meta`` is u8 or
+    u32; ``founder`` an int or a u32 column of one value per row."""
+    out = _timeline(tab, member, meta, gt, 0, perm, 0, founder,
+                    "timeline_check")
+    LAUNCHES["timeline_check"] += 1
+    return out
+
+
+def timeline_check_grant(tab, member, mask, gt, n_meta: int, perm: int):
+    """K8 ``check_grant``: bool [N, Q] (csrc/timeline.cu)."""
+    out = _timeline(tab, member, mask, gt, 1, perm, n_meta, 0,
+                    "timeline_check_grant")
+    LAUNCHES["timeline_check_grant"] += 1
+    return out
 
 
 # ---- K4: rank compaction ---------------------------------------------------
@@ -400,12 +509,46 @@ def dup_earlier(member, gt, ok):
     return out
 
 
-def _intake_launch(what: str, *args):
+# ---- K9: store match (Triton) -----------------------------------------------
+
+def store_match(mode: str, w_cols, q_cols):
+    """K9 in ``mode`` (:data:`.intake_triton.MODES`): ``w_cols`` is the
+    row's entries -- a flag (bool) or meta (u8) column, then two u32 key
+    columns and, for ``"flip"``, the u32 aux -- and ``q_cols`` the two
+    u32 (a u8 meta is widened) query columns."""
+    from dispersy_tpu_torch.kernels import intake_triton as it
+    flag, w1, w2, *wv = w_cols
+    n, w = w1.shape
+    if mode not in it.MODES:
+        raise KernelError(f"store_match: unknown mode {mode!r}")
+    flag_dt = torch.bool if mode in ("flip", "undo_hits") else torch.uint8
+    _req(flag, f"store_match.{mode}.flag", (flag_dt,), (n, w))
+    for i, c in enumerate([w1, w2, *wv]):
+        _req(c, f"store_match.{mode}.w[{i}]", (torch.uint32,), (n, w))
+    if (mode == "flip") != bool(wv):
+        raise KernelError("store_match: the aux column goes with 'flip' "
+                          "only")
+    shape = torch.broadcast_shapes(*(c.shape for c in q_cols))
+    if len(shape) != 2 or shape[0] != n or shape[1] < 1 or w < 1:
+        raise KernelError(f"store_match: queries {tuple(shape)} against "
+                          f"[{n}, {w}]")
+    q1, q2 = (c if c.dtype != torch.uint8 else c.to(torch.int32).view(
+        torch.uint32) for c in q_cols)
+    q1, q2 = (_u32_2d(c, f"store_match.{mode}.q", shape) for c in (q1, q2))
+    flag = flag.view(torch.uint8)
+    out = _intake_launch(f"store_match {mode}", it.MODES[mode], flag, w1,
+                         w2, wv[0] if wv else w1, q1, q2,
+                         fn=it.launch_match)
+    LAUNCHES[f"store_match_{mode}"] += 1
+    return out
+
+
+def _intake_launch(what: str, *args, fn=None):
     from dispersy_tpu_torch.kernels import intake_triton
     # Triton raises on a failed compile or launch; the stream query
     # raises on an error the card has already reported (no wait).
     try:
-        out = intake_triton.launch(*args)
+        out = (fn or intake_triton.launch)(*args)
         torch.cuda.current_stream().query()
     except Exception as exc:
         raise KernelError(f"{what}: {exc}") from exc

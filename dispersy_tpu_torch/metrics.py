@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dispersy_tpu_torch.config import EMPTY_U32, NO_PEER, CommunityConfig
+from dispersy_tpu_torch.engine import killed_mask
 from dispersy_tpu_torch.state import PeerState
 
 # telemetry.U64_COUNTERS: every counter a snapshot totals, in row order.
@@ -56,7 +57,7 @@ def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
         "round": int(state.round_index.view(torch.int32).item()) & EMPTY_U32,
         "sim_time": float(state.time),
         "alive_members": int(members.sum()),
-        "killed": 0,                   # hard kills need timeline_enabled
+        "killed": int(killed_mask(state.store_meta).sum()),
         "walk_success": ws,
         "walk_fail": wf,
         "walk_success_rate": ws / max(ws + wf, 1),

@@ -6,10 +6,11 @@ member) with ``EMPTY_U32`` holes at the end.  Columns keep their schema
 dtypes (u32 gt/member/payload, u8 meta/flags, and an aux column that is
 u32, or u16 under the byte-diet store's ``aux_bits=16``).
 
-:func:`store_insert`, :func:`rank_compact_many` and :func:`store_stage`
-are wrappers: a CPU tensor takes the plain PyTorch version beside them, a
-CUDA tensor the hand-written kernel (``csrc/store.cu``,
-``csrc/compact.cu``, ``csrc/stage.cu``) or an error.
+:func:`store_insert`, :func:`rank_compact_many`, :func:`store_stage` and
+:func:`store_remove` are wrappers: a CPU tensor takes the plain PyTorch
+version beside them, a CUDA tensor the hand-written kernel
+(``csrc/store.cu``, ``csrc/compact.cu``, ``csrc/stage.cu``,
+``csrc/remove.cu``) or an error.
 :func:`cohort_take`, :func:`cohort_put` and :func:`cohort_set` move a cohort's row block of
 the staggered store; they compute nothing and need no kernel.
 """
@@ -122,11 +123,32 @@ def as_store_dtypes(new: StoreCols, store: StoreCols) -> StoreCols:
                         flags=cast(new.flags, store.flags.dtype))
 
 
+def _history_kill(gt, member, meta, dup, history: tuple) -> torch.Tensor:
+    """bool[N, W]: LastSync keep-last-k over the merged, gt-ordered row --
+    a live record (not a dup) whose meta keeps k > 0 dies when at least k
+    live records of its (member, meta) have a higher gt.  One [N, W]
+    pass per entry of the row, so no [N, W, W] tensor is made."""
+    nm = len(history)
+    k_arr = torch.tensor(history, dtype=torch.int64, device=gt.device)
+    meta64 = meta.to(torch.int64)
+    k_meta = torch.where(meta64 < nm, k_arr[meta64.clamp(max=nm - 1)], 0)
+    g = wide(gt)
+    live = (g != EMPTY_U32) & ~dup
+    newer = torch.zeros_like(g)
+    for q in range(g.shape[-1]):
+        newer += (live[:, q:q + 1] & (member[:, q:q + 1] == member)
+                  & (meta64[:, q:q + 1] == meta64)
+                  & (g[:, q:q + 1] > g))
+    return (k_meta > 0) & live & (newer >= k_meta)
+
+
 def store_insert_plain(store: StoreCols, new: StoreCols,
-                       new_mask: torch.Tensor) -> InsertResult:
+                       new_mask: torch.Tensor,
+                       history: tuple = ()) -> InsertResult:
     """The JAX package's sort form (``_sort_ordered``): one lexicographic
     sort of ring ++ batch on (gt, member, position), then the UNIQUE(member,
-    gt) dup kill and a rank compaction that keeps the lowest gts."""
+    gt) dup kill, the LastSync kill of ``history`` and a rank compaction
+    that keeps the lowest gts."""
     m = store.gt.shape[-1]
     n_before = count_valid(store.gt)
     masked = _masked_batch(new, new_mask)
@@ -144,7 +166,10 @@ def store_insert_plain(store: StoreCols, new: StoreCols,
     dup = torch.zeros_like(origin)
     dup[:, 1:] = ((gt[:, 1:] == gt[:, :-1]) & (member[:, 1:] == member[:, :-1])
                   & (gt[:, 1:] != -1))
-    keep = (gt != -1) & ~dup
+    kill = dup
+    if any(k > 0 for k in history):
+        kill = dup | _history_kill(gt, member, meta, dup, history)
+    keep = (gt != -1) & ~kill
     rank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
     slot = torch.where(keep & (rank < m), rank, m)
     dts = [c.dtype for c in store]
@@ -166,21 +191,48 @@ def store_insert(store: StoreCols, new: StoreCols, new_mask: torch.Tensor,
     """Merge a batch of records into each peer's sorted store.
 
     UNIQUE(member, global_time): the existing record wins, then batch
-    order.  Capacity overflow keeps the lowest global_times.  LastSync
-    ``history`` (keep-last-k) is not ported yet.  The batch's narrowed
-    columns follow the store's dtypes.
+    order.  ``history`` (per user meta, LastSync keep-last-k): a meta
+    with k > 0 keeps only the k highest-gt records per (member, meta).
+    Capacity overflow keeps the lowest global_times.  The batch's
+    narrowed columns follow the store's dtypes.
     """
-    if any(k > 0 for k in history):
-        raise NotImplementedError(
-            "store_insert with a LastSync history (last_sync_history) is "
-            "not ported yet")
     new = as_store_dtypes(new, store)
+    if not any(k > 0 for k in history):
+        history = ()
     if new_mask.device.type == "cpu":
-        return store_insert_plain(store, new, new_mask)
+        return store_insert_plain(store, new, new_mask, history)
     gt, member, meta, payload, aux, flags, ins, drop, evi = \
-        kernels.store_insert(store, new, new_mask)
+        kernels.store_insert(store, new, new_mask, history)
     return InsertResult(StoreCols(gt, member, meta, payload, aux, flags),
                         ins, drop, evi)
+
+
+class RemoveResult(NamedTuple):
+    store: StoreCols
+    n_removed: torch.Tensor  # i32[N] records deleted
+
+
+def store_remove_plain(store: StoreCols, kill: torch.Tensor) -> RemoveResult:
+    m = store.gt.shape[-1]
+    valid = store.valid
+    keep = valid & ~kill
+    rank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
+    slot = torch.where(keep, rank, m)
+    out = StoreCols(*rank_compact_many_plain(
+        [(c, f) for c, f in zip(store, (EMPTY_U32, EMPTY_U32,
+                                        empty_of(store.meta.dtype),
+                                        EMPTY_U32, 0, 0))], slot, m))
+    return RemoveResult(out, (valid & kill).sum(-1, dtype=torch.int32))
+
+
+def store_remove(store: StoreCols, kill: torch.Tensor) -> RemoveResult:
+    """Delete the ``kill``-masked records (bool [N, M]; dead slots are
+    ignored); survivors keep their order and compact left, holes to the
+    end.  The retro-reject half of the Timeline's re-walk."""
+    if kill.device.type == "cpu":
+        return store_remove_plain(store, kill)
+    *cols, n_removed = kernels.store_remove(store, kill)
+    return RemoveResult(StoreCols(*cols), n_removed)
 
 
 class SyncSlice(NamedTuple):

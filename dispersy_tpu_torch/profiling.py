@@ -1,4 +1,5 @@
-"""The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``).
+"""The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
+the permissioned community at that shape, and the schedule that drives it.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -6,7 +7,15 @@ helpers price XLA executables and have no counterpart here.
 
 from __future__ import annotations
 
-from dispersy_tpu_torch.config import CommunityConfig
+from typing import NamedTuple
+
+import numpy as np
+
+from dispersy_tpu_torch.config import (DEFAULT_PRIORITY, EMPTY_U32,
+                                       META_AUTHORIZE, META_DESTROY,
+                                       META_DYNAMIC, META_REVOKE,
+                                       META_UNDO_OTHER, CommunityConfig,
+                                       perm_bit)
 from dispersy_tpu_torch.planes import StoreConfig
 
 
@@ -42,6 +51,165 @@ def slice_config(n_peers: int) -> CommunityConfig:
     return bench_config(n_peers, "tpu").replace(store=StoreConfig())
 
 
+def permissioned_config(n_peers: int) -> CommunityConfig:
+    """The forum community of ``examples/forum.py`` at the slice's widths:
+    what ``dispersy_tpu/community.py`` compiles from its three
+    declarations -- a public full-sync post (meta 0), a pin that starts
+    LinearResolution and can be flipped public (meta 1, dynamic), and a
+    LastSync(1) profile (meta 2) -- with ``k_authorized=8`` as there.
+    The Timeline needs the legacy ring (the config refuses it with
+    ``store.staging > 0``)."""
+    return slice_config(n_peers).replace(
+        n_meta=3, timeline_enabled=True, protected_meta_mask=0b010,
+        dynamic_meta_mask=0b010, last_sync_history=(0, 0, 1),
+        meta_priority=(DEFAULT_PRIORITY,) * 3, k_authorized=8)
+
+
+# Metas of the permissioned community.
+POST, PIN, PROFILE = 0, 1, 2
+# A moderator's grant on the pin: permit | authorize | undo.
+MOD_GRANT = (perm_bit(PIN, "permit") | perm_bit(PIN, "authorize")
+             | perm_bit(PIN, "undo"))
+PIN_PERMIT = perm_bit(PIN, "permit")
+# The rounds of the schedule: each create runs before ``step`` of its
+# round.  The revoke falls in the first 8 rounds, so a 3 + 5 round run
+# at full width reaches it.
+R_DELEGATE, R_REVOKE, R_DELEGATE_PIN = 4, 6, 7
+R_FLIP, R_UNDO, R_PUBLIC_PIN, R_DESTROY = 12, 14, 16, 18
+BURST = 6           # profile updates the revoked moderator makes first
+
+
+class Create(NamedTuple):
+    """One ``create_messages`` call of a schedule, made before ``step``
+    of ``round``.  ``aux`` None (undo-other only) means: the global time
+    of the pin that the payload member authored, read from its own store
+    when the call is made (:func:`pin_gt`)."""
+    round: int
+    meta: int
+    authors: np.ndarray      # bool[N]
+    payload: np.ndarray      # uint32[N]
+    aux: np.ndarray | None   # uint32[N]
+
+
+def one_record_schedule(n_peers: int) -> list:
+    """The legacy and diet rounds' creates: one record (meta 1, payload
+    its author's id) by every 64th peer before round 0."""
+    idx = np.arange(n_peers, dtype=np.uint32)
+    return [Create(0, 1, idx % 64 == 0, idx, np.zeros_like(idx))]
+
+
+def permissioned_roles(n_peers: int) -> dict:
+    """The founder, the four moderators and their four delegates (peer
+    ids), spread over the member range."""
+    cfg = permissioned_config(n_peers)
+    f, t = cfg.founder, cfg.n_trackers
+    stride = (n_peers - t) // 4
+    mods = f + 1 + stride * np.arange(4)
+    return {"founder": f, "mods": mods, "delegates": mods + 2}
+
+
+def permissioned_schedule(n_peers: int, destroy: bool = True) -> list:
+    """The permissioned round's creates, in call order.
+
+    Before round 0 the founder authorizes four moderators on the pin
+    (one call each), every 64th peer posts on meta 0 and writes its
+    profile twice (LastSync keep-last-1 evicts the first).  Authority
+    spreads only by sync, so the later steps wait for it: the
+    moderators delegate the pin's permit to one member each and pin
+    (round 4, where the grant has reached them; the delegates pin too,
+    before they can hold theirs: a no-op); moderator 0 bumps its clock with
+    ``BURST`` profile updates, delegates and pins once more, and the
+    founder revokes it (round 6: the retro pass runs at the founder);
+    the delegates pin (rounds 7 and 8); the founder flips the pin public
+    (round 12); moderator 3 undoes its delegate's pin (round 14, once
+    the pin has reached it); every 8th peer pins (round 16: a no-op
+    where the flip has not arrived); with ``destroy`` the founder
+    destroys the community (round 18)."""
+    n = n_peers
+    roles = permissioned_roles(n)
+    f, mods, dels = roles["founder"], roles["mods"], roles["delegates"]
+    idx = np.arange(n, dtype=np.uint32)
+    zero = np.zeros(n, np.uint32)
+
+    def who(*ids):
+        m = np.zeros(n, bool)
+        m[list(ids)] = True
+        return m
+
+    def at(ids, vals):
+        out = zero.copy()
+        out[ids] = vals
+        return out
+    every64 = np.arange(n) % 64 == 0
+    out = [Create(0, META_AUTHORIZE, who(f), at([f], m), at([f], MOD_GRANT))
+           for m in mods]
+    out += [Create(0, POST, every64, idx, zero),
+            Create(0, PROFILE, every64, idx + 1, zero),
+            Create(0, PROFILE, every64, idx + 2, zero),
+            Create(R_DELEGATE, META_AUTHORIZE, who(*mods), at(mods, dels),
+                   at(mods, PIN_PERMIT)),
+            Create(R_DELEGATE, PIN, who(*mods), idx + 100, zero),
+            Create(R_DELEGATE, PIN, who(*dels), idx + 200, zero)]
+    out += [Create(R_REVOKE, PROFILE, who(mods[0]), idx + 400 + i, zero)
+            for i in range(BURST)]
+    out += [Create(R_REVOKE, META_AUTHORIZE, who(mods[0]),
+                   at([mods[0]], mods[0] + 4), at([mods[0]], PIN_PERMIT)),
+            Create(R_REVOKE, PIN, who(mods[0]), idx + 500, zero),
+            Create(R_REVOKE, META_REVOKE, who(f), at([f], mods[0]),
+                   at([f], MOD_GRANT)),
+            Create(R_DELEGATE_PIN, PIN, who(*dels), idx + 300, zero),
+            Create(R_DELEGATE_PIN + 1, PIN, who(*dels), idx + 700, zero),
+            Create(R_UNDO, META_UNDO_OTHER, who(mods[3]),
+                   at([mods[3]], dels[3]), None),
+            Create(R_FLIP, META_DYNAMIC, who(f), at([f], PIN), zero),
+            Create(R_PUBLIC_PIN, PIN, np.arange(n) % 8 == 5, idx + 600,
+                   zero)]
+    if destroy:
+        out.append(Create(R_DESTROY, META_DESTROY, who(f), zero, zero))
+    return out
+
+
+def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
+    """Make the creates of round ``rnd`` on a port state, in order (an
+    undo-other's aux read from the state's own store rows)."""
+    import torch
+
+    from dispersy_tpu_torch import engine
+    from dispersy_tpu_torch.u32 import bits, wide
+
+    def rows(ids):
+        # Indexed through the signed views (no u32 indexing on the card).
+        ix = torch.as_tensor(ids, device=state.device)
+        return tuple(wide(bits(getattr(state, k))[ix]).cpu().numpy()
+                     for k in ("store_gt", "store_member", "store_meta"))
+    for c in creates:
+        if c.round != rnd:
+            continue
+        aux = c.aux if c.aux is not None else pin_gt(c.payload, c.authors,
+                                                     rows)
+        state = engine.create_messages(
+            state, cfg, torch.from_numpy(c.authors).to(state.device), c.meta,
+            torch.from_numpy(c.payload.astype(np.int64)).to(state.device),
+            torch.from_numpy(aux.astype(np.int64)).to(state.device))
+    return state
+
+
+def pin_gt(payload: np.ndarray, authors: np.ndarray, rows) -> np.ndarray:
+    """uint32[N] aux of an undo-other call: for each author, the highest
+    global time of a pin (meta 1) that its payload member holds in its
+    own store, else 0.  ``rows(ids)`` returns the numpy
+    ``(store_gt, store_member, store_meta)`` rows of those peers."""
+    out = np.zeros(payload.shape[0], np.uint32)
+    ids = np.flatnonzero(authors)
+    if not ids.size:
+        return out
+    tgt = payload[ids].astype(np.int64)
+    g, m, t = (np.asarray(a).astype(np.int64) for a in rows(tgt))
+    own = (m == tgt[:, None]) & (t == PIN) & (g != EMPTY_U32)
+    out[ids] = np.where(own, g, 0).max(axis=1)
+    return out
+
+
 # Every device function of the hand-written kernels (csrc/*.cu and
 # kernels/intake_triton.py) is named with this prefix, which gives the
 # profile's own-kernel share.
@@ -49,19 +217,23 @@ OWN_KERNEL_PREFIX = "dk_"
 
 
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
-                   seed: int = 0, top: int = 15, diet: bool = False) -> dict:
+                   seed: int = 0, top: int = 15, diet: bool = False,
+                   timeline: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
-    ``torch.profiler``: the legacy ring (:func:`slice_config`) or, with
+    ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
     3 warm-up rounds are two quiet rounds and one sync round, one stride
-    of the cohort cadence).  Reports wall time; device busy time (the sum
+    of the cohort cadence); with ``timeline``, the permissioned round of
+    :func:`permissioned_config` driven by :func:`permissioned_schedule`
+    (no destroy; the 3 traced rounds are rounds 3-5 of the schedule, the
+    moderators' delegations included).  Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
     the share of it in the hand-written kernels; and the ``top`` entries
     by device time, both as PyTorch ops (host-side events, each charged
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
-    ``python -m dispersy_tpu_torch.profiling [--diet]`` prints it as one
-    JSON line."""
+    ``python -m dispersy_tpu_torch.profiling [--diet | --timeline]``
+    prints it as one JSON line."""
     import time
 
     import torch
@@ -72,19 +244,27 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    cfg = bench_config(n_peers) if diet else slice_config(n_peers)
-    state = init_state(cfg, seed, device="cuda")
-    state = engine.seed_overlay(state, cfg, 8)
-    idx = torch.arange(n_peers, device=state.device)
-    state = engine.create_messages(state, cfg, idx % 64 == 0, 1, idx)
-    for _ in range(warmup):
-        state = engine.step(state, cfg)
+    if diet and timeline:
+        raise ValueError("the Timeline runs on the legacy ring only")
+    if timeline:
+        cfg = permissioned_config(n_peers)
+        creates = permissioned_schedule(n_peers, destroy=False)
+    else:
+        cfg = bench_config(n_peers) if diet else slice_config(n_peers)
+        creates = one_record_schedule(n_peers)
+    state = engine.seed_overlay(init_state(cfg, seed, device="cuda"), cfg, 8)
+
+    def advance(state, rnd):
+        state = run_creates(state, cfg, creates, rnd)
+        return engine.step(state, cfg)
+    for rnd in range(warmup):
+        state = advance(state, rnd)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            state = engine.step(state, cfg)
+        for rnd in range(warmup, warmup + rounds):
+            state = advance(state, rnd)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total]
@@ -107,6 +287,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     busy = ms(device)
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
+        "timeline": timeline,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
@@ -121,7 +302,12 @@ if __name__ == "__main__":
     import argparse
     import json
     ap = argparse.ArgumentParser(description=profile_rounds.__doc__)
-    ap.add_argument("--diet", action="store_true",
-                    help="trace the byte-diet round of bench_config")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--diet", action="store_true",
+                       help="trace the byte-diet round of bench_config")
+    which.add_argument("--timeline", action="store_true",
+                       help="trace the permissioned round of "
+                       "permissioned_config")
     args = ap.parse_args()
-    print(json.dumps(profile_rounds(diet=args.diet)))
+    print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
+                                    rounds=5 if args.timeline else 3)))

@@ -33,5 +33,5 @@ def test_no_jax_imports(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"engine.py", "bridge.py", "chip_smoke.py",
-            "intake_triton.py"} <= names
+    assert {"engine.py", "bridge.py", "chip_smoke.py", "intake_triton.py",
+            "timeline.py", "profiling.py"} <= names

@@ -189,15 +189,6 @@ def test_store_insert(n, m, b, keys, merge, monkeypatch):
     assert int(to_np(got.n_dropped).sum()) > 0   # dups or overflow hit
 
 
-def test_store_insert_history_not_ported():
-    rs = np.random.default_rng(0)
-    s, bt = ring(rs, 2, 4), batch(rs, 2, 2)
-    with pytest.raises(NotImplementedError):
-        st.store_insert(st.StoreCols(*map(to_t, s)),
-                        st.StoreCols(*map(to_t, bt)),
-                        torch.ones(2, 2, dtype=torch.bool), history=(0, 2))
-
-
 @pytest.mark.parametrize("n,m", [(DIMS["N"], DIMS["M"]), (40, 48)])
 def test_store_slices_and_counts(n, m):
     rs = np.random.default_rng(n + m)

@@ -2,9 +2,12 @@
 ``dispersy_tpu.engine.step`` on every PeerState leaf and every stats
 counter after every round (tolerance 0 -- every op of the round is
 integer or elementwise float32 work, and every random choice is a counter
-hash both packages compute alike).  The legacy ring and the byte-diet
+hash both packages compute alike).  The legacy ring, the byte-diet
 store (staging, digest, cohort stagger, u16 aux and candidate stamps)
-each have their cases."""
+and the permissioned community (the Timeline, driven by
+``profiling.permissioned_schedule``) each have their cases."""
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -21,6 +24,9 @@ from dispersy_tpu.storediet import StoreConfig as JaxStore
 from dispersy_tpu_torch import engine, init_state, metrics
 from dispersy_tpu_torch.bridge import assert_states_equal, state_to_numpy
 from dispersy_tpu_torch.config import CommunityConfig
+from dispersy_tpu_torch import profiling
+from dispersy_tpu_torch.bridge import first_difference
+from dispersy_tpu_torch.config import META_DYNAMIC
 from dispersy_tpu_torch.planes import StoreConfig
 from dispersy_tpu_torch.storediet import phase_of
 
@@ -144,13 +150,12 @@ def test_diet_phase_argument_equals_cadence():
         engine.step(ps, pc, "compact")
 
 
-@pytest.mark.parametrize("field", ["sync_enabled", "last_sync_history"])
+@pytest.mark.parametrize("field", ["sync_enabled", "direct_meta_mask"])
 def test_diet_off_slice_raises(field):
-    """The diet without the sync exchange, and LastSync history, are not
+    """The diet without the sync exchange, and direct metas, are not
     ported."""
-    n_meta = CommunityConfig(**BASE).n_meta
     extra = ({"sync_enabled": False} if field == "sync_enabled" else
-             {"last_sync_history": (2,) + (0,) * (n_meta - 1)})
+             {"direct_meta_mask": 1})
     cfg = CommunityConfig(**BASE, **extra, store=StoreConfig(staging=4))
     st = init_state(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=field):
@@ -158,7 +163,7 @@ def test_diet_off_slice_raises(field):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("timeline_enabled", True),
+    ("seq_meta_mask", 1),
     ("malicious_enabled", True),
     ("identity_enabled", True),
     ("p_symmetric", 0.25),
@@ -175,3 +180,197 @@ def test_cuda_request_without_card_raises():
         pytest.skip("a card is present; the no-card refusal cannot show")
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(CommunityConfig(**BASE), 0)
+
+
+# ---- the permissioned community (the Timeline) ------------------------------
+
+def jax_config(pc):
+    """The JAX package's CommunityConfig with a port config's fields (the
+    plane configs at their defaults)."""
+    return JaxConfig(**{f.name: getattr(pc, f.name)
+                        for f in dataclasses.fields(pc)
+                        if not dataclasses.is_dataclass(getattr(pc, f.name))})
+
+
+def run_both(pc, rounds, creates, seed=5, degree=6, store=None):
+    """Drive both packages through ``rounds`` rounds with the schedule's
+    creates; returns (JAX state, port state, the per-round first leaf
+    difference or None)."""
+    jc = jax_config(pc)
+    if store is not None:
+        jc = jc.replace(store=JaxStore(**store))
+        pc = pc.replace(store=StoreConfig(**store))
+    js = jeng.seed_overlay(jstate.init_state(jc, jax.random.PRNGKey(seed)),
+                           jc, degree=degree)
+    ps = engine.seed_overlay(init_state(pc, seed, device="cpu"), pc, degree)
+
+    def rows(ids):
+        return tuple(np.asarray(getattr(js, k))[ids]
+                     for k in ("store_gt", "store_member", "store_meta"))
+    diffs = []
+    for rnd in range(rounds):
+        for c in creates:
+            if c.round != rnd:
+                continue
+            aux = (c.aux if c.aux is not None
+                   else profiling.pin_gt(c.payload, c.authors, rows))
+            # The jitted form compiles once per (config, meta).
+            js = jeng.create_messages_jit(js, jc, jnp.asarray(c.authors),
+                                          c.meta, jnp.asarray(c.payload),
+                                          jnp.asarray(aux))
+        ps = profiling.run_creates(ps, pc, creates, rnd)
+        diffs.append((f"round {rnd} creates", first_difference(
+            state_to_numpy(ps), state_to_numpy(js))))
+        js, ps = jeng.step(js, jc), engine.step(ps, pc)
+        diffs.append((f"round {rnd}", first_difference(
+            state_to_numpy(ps), state_to_numpy(js))))
+    return jc, pc, js, ps, diffs
+
+
+PERM_N, PERM_ROUNDS = 256, 20
+PERM_CASES = {"permissioned": {},
+              "permissioned_lossy_churn": dict(packet_loss=0.1,
+                                               churn_rate=0.02)}
+
+
+@pytest.mark.parametrize("case", sorted(PERM_CASES))
+def test_permissioned_rounds_equal_jax_every_leaf(case):
+    """The schedule's creates and rounds (the destroy included) leave the
+    port equal to the JAX package on every leaf and counter, and
+    metrics.snapshot (``killed`` included) equal to the JAX package's once
+    the destroy has spread.  On the clean case each feature of the
+    schedule really happens in the JAX run (:func:`assert_features`)."""
+    pc = profiling.permissioned_config(PERM_N).replace(**PERM_CASES[case])
+    jc, pc, js, ps, diffs = run_both(
+        pc, PERM_ROUNDS, profiling.permissioned_schedule(PERM_N))
+    bad = [(where, d) for where, d in diffs if d is not None]
+    assert not bad, f"{case}: {bad[0]}"
+    same_snapshot(ps, pc, js, jc)
+    assert metrics.snapshot(ps, pc)["killed"] > 1
+    if case == "permissioned":
+        assert_features(js)
+
+
+def assert_features(js):
+    """A delegated grant folded, a pin is stored away from its author,
+    the revoke unwound rows and removed records, an undo marked, a flip
+    let a non-granted member pin, LastSync evicted, the destroy killed."""
+    a = {k: np.asarray(getattr(js, k)) for k in (
+        "auth_member", "auth_issuer", "store_meta", "store_member",
+        "store_flags", "store_payload")}
+    roles = profiling.permissioned_roles(PERM_N)
+    f, mods, dels = roles["founder"], roles["mods"], roles["delegates"]
+    live = a["auth_member"] != 0xFFFFFFFF
+    assert (live & np.isin(a["auth_issuer"], mods)).any()     # delegated
+    rows = np.arange(PERM_N)[:, None]
+    pins = a["store_meta"] == profiling.PIN
+    assert (pins & (a["store_member"] != rows)).any()         # spread
+    assert int(np.asarray(js.stats.auth_unwound).sum()) > 0
+    assert int(np.asarray(js.stats.msgs_retro).sum()) > 0
+    assert ((a["store_flags"] & 1) == 1).any()                # undone
+    assert ((a["store_meta"] == META_DYNAMIC).sum(1) > 0)[
+        np.arange(PERM_N) != f].any()
+    granted = np.concatenate([[f], mods, dels])
+    assert (pins & ~np.isin(a["store_member"], granted)).any()  # public
+    # keep-last-1: peer 64 wrote two profiles and keeps the second; no
+    # store holds two profiles of one member
+    prof = a["store_meta"] == profiling.PROFILE
+    own = prof[64] & (a["store_member"][64] == 64)
+    assert a["store_payload"][64][own].tolist() == [64 + 2]
+    for r in range(PERM_N):
+        authors = a["store_member"][r][prof[r]]
+        assert len(authors) == len(set(authors.tolist()))
+    assert int((a["store_meta"] == 0xF5).any(1).sum()) > 1    # killed
+
+
+def test_permissioned_config_is_the_forum_compile():
+    """permissioned_config equals, field for field, what the JAX
+    Community compiles from examples/forum.py's three declarations at the
+    slice's widths."""
+    from dispersy_tpu.community import (Community, CommunityDestination,
+                                        DynamicResolution,
+                                        FullSyncDistribution,
+                                        LastSyncDistribution,
+                                        LinearResolution,
+                                        MemberAuthentication, Message,
+                                        PublicResolution)
+
+    class Forum(Community):
+        def initiate_meta_messages(self):
+            return [
+                Message("post", MemberAuthentication(), PublicResolution(),
+                        FullSyncDistribution(synchronization_direction="ASC"),
+                        CommunityDestination(node_count=3)),
+                Message("pin", MemberAuthentication(),
+                        DynamicResolution(LinearResolution(),
+                                          PublicResolution()),
+                        FullSyncDistribution(),
+                        CommunityDestination(node_count=3)),
+                Message("profile", MemberAuthentication(),
+                        PublicResolution(),
+                        LastSyncDistribution(history_size=1),
+                        CommunityDestination(node_count=3))]
+
+    pc = profiling.permissioned_config(256)
+    sc = profiling.slice_config(256)
+    compiled = {"n_meta", "protected_meta_mask", "seq_meta_mask",
+                "direct_meta_mask", "desc_meta_mask", "last_sync_history",
+                "meta_priority", "dynamic_meta_mask", "timeline_enabled",
+                "forward_fanout", "n_peers"}
+    widths = {f.name: getattr(sc, f.name) for f in dataclasses.fields(sc)
+              if f.name not in compiled
+              and not dataclasses.is_dataclass(getattr(sc, f.name))
+              and getattr(sc, f.name) != getattr(CommunityConfig(n_peers=256),
+                                                 f.name)}
+    jc = Forum(n_peers=256, k_authorized=8, **widths).config
+    for f in dataclasses.fields(pc):
+        if not dataclasses.is_dataclass(getattr(pc, f.name)):
+            assert getattr(pc, f.name) == getattr(jc, f.name), f.name
+
+
+# ---- LastSync under the diet; meta priorities and DESC sync -----------------
+
+def creates_on(metas, rounds, n, every=16):
+    """Create calls of every ``every``-th peer on each meta at each round."""
+    idx = np.arange(n)
+    return [profiling.Create(r, m, idx % every == (3 + m) % every,
+                             (idx * 7 + 11 + 1000 * r).astype(np.uint32),
+                             np.zeros(n, np.uint32))
+            for r in rounds for m in metas]
+
+
+ORDER_CASES = {  # (config, store, rounds): two compaction windows each
+    "diet_lastsync": (dict(BASE, n_meta=3, last_sync_history=(0, 2, 1)),
+                      BENCH_STORE, 24),
+    "priority_desc_diet": (dict(BASE, n_meta=3, meta_priority=(64, 200, 128),
+                                desc_meta_mask=0b101),
+                           dict(staging=8, compact_every=4, cohorts=4), 24),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_lastsync_and_priority_rounds_equal_jax_every_leaf(case):
+    """LastSync keep-last-k on the byte-diet store (evictions in the
+    create's ring insert and at compaction), and per-meta priorities
+    with DESC sync on the staggered store (the block serve's ordered view
+    and the priority forward rank; the legacy responder's ordered view
+    runs in every permissioned case), every leaf every round."""
+    kw, store, rounds = ORDER_CASES[case]
+    creates = creates_on((0, 1, 2), (0, 2, 5, 7), kw["n_peers"])
+    _, _, js, ps, diffs = run_both(CommunityConfig(**kw), rounds, creates,
+                                   store=store)
+    bad = [(where, d) for where, d in diffs if d is not None]
+    assert not bad, f"{case}: {bad[0]}"
+    stored = int(np.asarray(js.stats.msgs_stored).sum())
+    assert stored > kw["n_peers"]
+    if "lastsync" in case:
+        # Each author's own store keeps its newest profile (meta 2,
+        # keep-last-1) and its two newest pins (meta 1, keep-last-2).
+        meta, member, payload = (np.asarray(getattr(js, k)) for k in (
+            "store_meta", "store_member", "store_payload"))
+        for c in creates:
+            r = np.flatnonzero(c.authors)[0]
+            own = (member[r] == r) & (meta[r] == c.meta)
+            assert own.sum() == {0: 4, 1: 2, 2: 1}[c.meta]
+            if c.meta == 2:
+                assert payload[r][own][0] == r * 7 + 11 + 7000
