@@ -8,12 +8,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions; builds the CUDA kernels from ``dispersy_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, in parallel);
-2. kernels: every kernel of the three paths (K1-K10) on random inputs
+2. kernels: every kernel of the four paths (K1-K11) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes, the byte-diet round's (u16 aux columns, per-row
-   Bloom salts, the cohort block, the staging buffer), then the
-   permissioned round's (the [N, 8] grant tables, the store replays in
-   each K9 mode, store_remove, K3 with a LastSync history) -- held bit
+   Bloom salts, the cohort block, the staging buffer), the permissioned
+   round's (the [N, 8] grant tables, the store replays in each K9 mode,
+   store_remove, K3 with a LastSync history), then the hardened round's
+   (the store probes in each K11 mode, with planted hits) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events beside the plain version, the bytes bound and, where one
    PyTorch call does the same work, that call;
@@ -22,7 +23,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    round: the legacy ring for 20 rounds, the byte-diet
    ``bench_config(4096)`` for 24 rounds (two compaction windows), and the
    permissioned community for 22 rounds of
-   ``profiling.permissioned_schedule`` (the destroy included);
+   ``profiling.permissioned_schedule`` (the destroy included), and the
+   hardened community for 20 rounds of ``profiling.hardened_schedule``
+   (its convictions, gossip and stored identities checked after);
 4. main paths through the public entry points -- init_state,
    seed_overlay(8), the creates, warm-up and timed rounds -- each with
    every kernel's launch count read after it: the byte-diet round at
@@ -31,7 +34,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    quiet and sync), the legacy ring at the same shape (3 + 5 rounds), and
    the permissioned round of ``permissioned_config(1 << 20)`` (the
    schedule without the destroy; 3 + 5 rounds, the founder's revoke and
-   its retro pass among them).
+   its retro pass among them), and the hardened round of
+   ``hardened_config(1 << 20)`` (3 + 5 rounds: identities over rounds
+   0-3, the sequence chain, the round-4 equivocations).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -54,6 +59,7 @@ SCALAR_OPS_PER_S = 67e12       # H100 float32 outside the tensor cores
 N_PEERS = 1 << 20              # the full width: bench_config(1 << 20)
 PARITY_PEERS, PARITY_ROUNDS, DIET_PARITY_ROUNDS = 4096, 20, 24
 PERM_PARITY_ROUNDS = 22        # the whole schedule, the destroy included
+HARD_PARITY_ROUNDS = 20
 WARMUP, ROUNDS = 3, 5          # the legacy and permissioned main paths
 DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
@@ -69,6 +75,9 @@ PERM_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert_history",
              "timeline_check_grant", "store_match_flip",
              "store_match_undo_marked", "store_match_meta_of",
              "store_match_undo_hits", "store_remove")
+HARD_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
+             "rank_compact_many", "intake_checks", "store_probe_conflict",
+             "store_probe_identity", "store_probe_seq_max")
 
 
 def fail(msg: str) -> None:
@@ -879,6 +888,114 @@ PERM_KERNEL_CHECKS = (check_timeline, check_store_match, check_remove,
                       check_store_history)
 
 
+# ---- phase 2, the hardened round's call shapes -------------------------------
+
+def probe_inputs(x: Inputs, n: int, m: int, b: int):
+    """A ring of user, identity and proof records with empty slots, keys
+    from small ranges and values at and above 2^31, and an [N, B] batch
+    that copies ring slots (some with the meta, payload or aux changed)
+    or draws fresh keys: planted hits for every K11 mode."""
+    np = x.np
+    from dispersy_tpu_torch.ops import store as st
+    rs = x.rs
+    gts = np.array([1, 2, 3, 1 << 31, (1 << 31) + 5, 0xFFFFFFFE], np.uint32)
+    metas = np.array([0, 1, 0xF6, 0xF7], np.uint8)
+    live = rs.random((n, m)) < 0.8
+    cols = [np.where(live, rs.choice(gts, size=(n, m)), 0xFFFFFFFF),
+            np.where(live, rs.integers(0, 6, size=(n, m)), 0xFFFFFFFF),
+            np.where(live, rs.choice(metas, size=(n, m)), 0xFF),
+            rs.choice(gts, size=(n, m)), rs.choice(gts, size=(n, m))]
+    pick = rs.integers(0, m, size=(n, b))
+    rows = np.arange(n)[:, None]
+    q = [c[rows, pick] for c in (cols[1], cols[0], cols[2], cols[3],
+                                 cols[4])]
+    fresh = rs.random((n, b)) < 0.3
+    q[0] = np.where(fresh, rs.integers(0, 7, size=(n, b)), q[0])
+    q[1] = np.where(fresh, rs.choice(gts, size=(n, b)), q[1])
+    for i, pool in ((2, metas), (3, gts), (4, gts)):
+        q[i] = np.where(rs.random((n, b)) < 0.2, rs.choice(pool, size=(n, b)),
+                        q[i])
+
+    def u8(a):
+        return x.torch.from_numpy(a.astype(np.uint8)).to(x.dev)
+    stc = st.StoreCols(gt=x.from_u32(cols[0]), member=x.from_u32(cols[1]),
+                       meta=u8(cols[2]), payload=x.from_u32(cols[3]),
+                       aux=x.from_u32(cols[4]), flags=u8(np.zeros((n, m))))
+    return stc, (x.from_u32(q[0]), x.from_u32(q[1]), u8(q[2]),
+                 x.from_u32(q[3]), x.from_u32(q[4]))
+
+
+def check_store_probe(x: Inputs, reps: int) -> list:
+    """K11 in each mode at the intake's [N, 24] batch against the [N, 48]
+    ring.  Bytes: what the function must read -- every query column and
+    the ring's selecting columns in full ((member, gt) for ``conflict``,
+    the meta for ``identity``, (member, meta) for ``seq_max``), the other
+    columns only at the slots that select (a live row of the queried
+    (member, gt), an identity row, a live row of the queried (member,
+    meta)) -- and the output."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import META_IDENTITY
+    from dispersy_tpu_torch.ops import intake
+    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
+    b = cfg.response_budget + cfg.push_inbox
+    stc, (member, gt, meta, payload, aux) = probe_inputs(x, n, m, b)
+    sm, sg = stc.member.view(torch.int32), stc.gt.view(torch.int32)
+    live = sg != -1
+    same_mg = torch.zeros((n, m), dtype=torch.bool, device=x.dev)
+    same_mt = torch.zeros_like(same_mg)
+    for j in range(b):     # the ring slots some query selects
+        qm = member.view(torch.int32)[:, j:j + 1]
+        same_mg |= (sm == qm) & (sg == gt.view(torch.int32)[:, j:j + 1])
+        same_mt |= (sm == qm) & (stc.meta == meta[:, j:j + 1])
+    n_mg = int((same_mg & live).sum())
+    n_mt = int((same_mt & live).sum())
+    n_id = int((stc.meta == META_IDENTITY).sum())
+    nb = n * b
+    cases = {
+        "conflict": (
+            (stc.gt, stc.member, stc.meta, stc.payload, stc.aux),
+            (member, gt, meta, payload, aux),
+            lambda: intake.conflict_plain(stc, member, gt, meta, payload,
+                                          aux),
+            8 * n * m + 9 * n_mg + 17 * nb + nb, 5,
+            "dispersy_tpu/ops/intake.py:104"),
+        "identity": (
+            (stc.meta, stc.member), (member,),
+            lambda: intake.identity_stored_plain(stc, member),
+            n * m + 4 * n_id + 4 * nb + nb, 2,
+            "dispersy_tpu/ops/intake.py:269"),
+        "seq_max": (
+            (stc.gt, stc.member, stc.meta, stc.aux), (member, meta),
+            lambda: intake.seq_stored_max_plain(stc, member, meta),
+            5 * n * m + 8 * n_mt + 5 * nb + 4 * nb, 3,
+            "dispersy_tpu/ops/intake.py:325"),
+    }
+    rows = []
+    for mode, (s_cols, q_cols, plain, moved, cmps, replaces) in cases.items():
+        got = kernels.store_probe(mode, s_cols, q_cols)
+        if got.dtype == torch.uint32:
+            g = got.view(torch.int32)
+            hit = g != 0
+            if not bool((g < 0).any()):
+                fail("store_probe seq_max inputs never reach 2^31")
+        else:
+            hit = got
+        if not bool(hit.any()) or bool(hit.all()):
+            fail(f"store_probe {mode} inputs give a constant answer")
+        rows.append(timed_entry(
+            f"store_probe_{mode}", "triton",
+            "dispersy_tpu_torch/kernels/intake_triton.py", replaces, [got],
+            [plain()],
+            lambda s_cols=s_cols, q_cols=q_cols, mode=mode:
+            kernels.store_probe(mode, s_cols, q_cols),
+            plain, moved, reps, ops=cmps * n * b * m))
+    return rows
+
+
+HARD_KERNEL_CHECKS = (check_store_probe,)
+
+
 def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
     """Run ``checks`` on one config's shapes; each row notes the main
     ``path`` whose launch counts it takes."""
@@ -894,7 +1011,7 @@ def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
 
 # ---- phase 3: the card against the CPU at a small population --------------
 
-def parity_phase(cfg, seed: int, rounds: int, creates: list) -> None:
+def parity_phase(cfg, seed: int, rounds: int, creates: list):
     from dispersy_tpu_torch import engine, init_state
     from dispersy_tpu_torch.bridge import assert_states_equal
     from dispersy_tpu_torch.profiling import run_creates
@@ -910,20 +1027,54 @@ def parity_phase(cfg, seed: int, rounds: int, creates: list) -> None:
         gpu, cpu = engine.step(gpu, cfg), engine.step(cpu, cfg)
         assert_states_equal(gpu, cpu, f"{cfg.n_peers} peers, round {rnd}")
     print(f"parity: {cfg.n_peers} peers, {cfg.store}, timeline "
-          f"{cfg.timeline_enabled}, {rounds} rounds, card == cpu on every "
-          f"leaf after every round ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+          f"{cfg.timeline_enabled}, malicious {cfg.malicious_enabled}, "
+          f"{rounds} rounds, card == cpu on every leaf after every round "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return cpu
+
+
+def hardened_outcome(state, cfg) -> dict:
+    """The hardened round's counters (conflicts, gossiped convictions,
+    rejections), summed over the peers."""
+    from dispersy_tpu_torch.metrics import _u64_total
+    return {k: _u64_total(getattr(state.stats, k))
+            for k in ("conflicts", "convictions_rx", "msgs_rejected")}
+
+
+def check_hardened_parity(state, cfg) -> None:
+    """After the parity run: convictions by eyewitnesses and by gossip
+    happened, only equivocators stand convicted, and every stored
+    identity record carries its author's real key digest."""
+    import numpy as np
+    from dispersy_tpu_torch.crypto import MemberRegistry, verify_identities
+    from dispersy_tpu_torch.profiling import hardened_roles
+    from dispersy_tpu_torch.u32 import wide
+    out = hardened_outcome(state, cfg)
+    if not (out["conflicts"] and out["convictions_rx"]
+            and out["msgs_rejected"]):
+        fail(f"hardened parity run: no conviction or rejection: {out}")
+    mal = wide(state.mal_member).cpu().numpy()
+    eq = np.flatnonzero(hardened_roles(cfg.n_peers)["equivocators"])
+    if not np.isin(mal[mal != 0xFFFFFFFF], eq).all():
+        fail("hardened parity run: an honest member stands convicted")
+    ok = verify_identities(state, cfg, MemberRegistry())
+    if ok != 1.0:
+        fail(f"hardened parity run: stored identities verify at {ok}")
+    print(f"parity hardened: {out}, identities verify 1.0", flush=True)
+
 
 
 # ---- phase 4: the main paths at full width -------------------------------
 
 def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
-               rounds: int, creates: list, record: tuple) -> dict:
+               rounds: int, creates: list, record: tuple,
+               spread=None) -> dict:
     """Drive one main path through the public entry points with the
     launch counts set to 0 just before and read just after: the creates
     of each round before its step, the coverage of ``record`` (member,
     gt, meta, payload) after each timed round.  A round's time includes
-    its creates."""
+    its creates.  ``spread`` (a function of the state, default the
+    coverage) must grow over the timed rounds."""
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
@@ -939,7 +1090,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     n = cfg.n_peers
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    cov = []
+    cov, grown = [], []
     for rnd in range(warmup):
         if rnd:
             state = run_creates(state, cfg, creates, rnd)
@@ -954,6 +1105,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
         times.append(time.perf_counter() - a)
         phases.append(phase_of(cfg, rnd))
         cov.append(float(engine.coverage(state, *record)))
+        grown.append(float(spread(state)) if spread else cov[-1])
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -974,24 +1126,27 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     hole = state.sta_gt.view(torch.int32) == -1
     if bool((hole[:, :-1] & ~hole[:, 1:]).any()):
         fail(f"{path} main path: a staging buffer has a hole before a record")
-    if not cov[-1] > cov[0]:
-        fail(f"{path} main path: coverage did not grow "
-             f"({cov[0]} -> {cov[-1]})")
+    if not grown[-1] > grown[0]:
+        fail(f"{path} main path: the records did not spread "
+             f"({grown[0]} -> {grown[-1]})")
     snap = metrics.snapshot(state, cfg)
     if snap["walk_success"] == 0 or snap["msgs_stored"] == 0:
         fail(f"{path} main path: nothing walked or stored: {snap}")
     missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
         fail(f"{path} main path never launched {missing}: {launches}")
-    timeline = {}
+    extra = {}
     if cfg.timeline_enabled:
         # The retro pass ran (store_remove launches nowhere else); its
         # counts need not be non-zero at this size (a record reaches few
         # peers in 8 rounds).
         from dispersy_tpu_torch.metrics import _u64_total
-        timeline = {k: _u64_total(getattr(state.stats, k)) for k in (
+        extra = {k: _u64_total(getattr(state.stats, k)) for k in (
             "msgs_rejected", "auth_unwound", "msgs_retro")}
-        timeline["killed"] = snap["killed"]
+        extra["killed"] = snap["killed"]
+    if cfg.malicious_enabled:
+        extra = hardened_outcome(state, cfg)
+        extra["spread"] = grown
 
     def med(kind):
         sel = [t for t, ph in zip(times, phases) if kind in (None, ph)]
@@ -1006,7 +1161,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
            "phases": phases, "peak_mem_gib": peak / 2 ** 30,
            "coverage": cov, "store_fill": snap["store_fill"],
            "walk_success_rate": snap["walk_success_rate"],
-           **timeline,
+           **extra,
            "launches": launches, "launches_per_round": {
                k: v / (warmup + rounds) for k, v in launches.items()}}
     print(f"main {path}: " + json.dumps(out), flush=True)
@@ -1025,7 +1180,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.profiling import (POST, bench_config,
+    from dispersy_tpu_torch.profiling import (POST, SEQ_TEXT, bench_config,
+                                              hardened_config,
+                                              hardened_schedule,
                                               one_record_schedule,
                                               permissioned_config,
                                               permissioned_schedule,
@@ -1049,10 +1206,12 @@ def main() -> int:
                                 if not k.endswith(".ptxas")), flush=True)
 
     legacy, diet = slice_config(N_PEERS), bench_config(N_PEERS)
-    perm = permissioned_config(N_PEERS)
+    perm, hard = permissioned_config(N_PEERS), hardened_config(N_PEERS)
     rows = (kernel_phase(legacy, KERNEL_CHECKS, "legacy", SEED, REPS)
             + kernel_phase(diet, DIET_KERNEL_CHECKS, "diet", SEED, REPS)
             + kernel_phase(perm, PERM_KERNEL_CHECKS, "permissioned", SEED,
+                           REPS)
+            + kernel_phase(hard, HARD_KERNEL_CHECKS, "hardened", SEED,
                            REPS))
     print(f"kernels checked ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
@@ -1062,6 +1221,10 @@ def main() -> int:
                  one_record_schedule(PARITY_PEERS))
     parity_phase(permissioned_config(PARITY_PEERS), SEED, PERM_PARITY_ROUNDS,
                  permissioned_schedule(PARITY_PEERS))
+    hard_p = hardened_config(PARITY_PEERS)
+    check_hardened_parity(parity_phase(
+        hard_p, SEED, HARD_PARITY_ROUNDS, hardened_schedule(PARITY_PEERS)),
+        hard_p)
     one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
@@ -1072,7 +1235,16 @@ def main() -> int:
         "permissioned": main_phase(
             perm, "permissioned", PERM_PATH, SEED, WARMUP, ROUNDS,
             permissioned_schedule(N_PEERS, destroy=False),
-            (64, 2, POST, 64))}
+            (64, 2, POST, 64)),
+        # The first sequence-text record of the first author (its clock
+        # claims 2 for its identity, 3 for its post, 4 for this one); the
+        # spread that must grow is the count of stored sequence-text
+        # records over all peers.
+        "hardened": main_phase(
+            hard, "hardened", HARD_PATH, SEED, WARMUP, ROUNDS,
+            hardened_schedule(N_PEERS),
+            (hard.n_trackers, 4, SEQ_TEXT, hard.n_trackers + 1000),
+            spread=lambda st: int((st.store_meta == SEQ_TEXT).sum()))}
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

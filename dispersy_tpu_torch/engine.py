@@ -14,8 +14,12 @@ their defaults (:func:`check_slice`) except the permission engine: the
 Timeline (authorize / revoke with delegation chains, DynamicResolution
 flips, undo-own and undo-other, destroy, and the retroactive re-walk
 after a revoke) on the legacy ring, LastSync keep-last-k, and per-meta
-priorities and DESC sync; any other config raises
-``NotImplementedError`` before a round starts.  The store is the legacy
+priorities and DESC sync; and the hardened intake: double-sign
+conviction with malicious-proof gossip (a bounded blacklist, the
+eyewitness's own proof record, convicted members ejected from the
+candidate table), the identity gate and sequence-numbered metas taken
+strictly in order.  Any other config raises ``NotImplementedError``
+before a round starts.  The store is the legacy
 ring (merged every round) or the byte-diet store (``store.staging > 0``,
 :mod:`storediet`): arrivals land in a staging buffer, the Bloom claim
 is a persistent digest salted with an epoch, and the sync exchange and
@@ -45,7 +49,8 @@ from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
                                        INTRO_REQUEST_BASE_BYTES,
                                        INTRO_RESPONSE_BYTES, META_AUTHORIZE,
                                        META_DESTROY, META_DYNAMIC,
-                                       META_IDENTITY, META_REVOKE,
+                                       META_IDENTITY, META_MALICIOUS,
+                                       META_REVOKE,
                                        META_UNDO_OTHER, META_UNDO_OWN,
                                        NO_PEER, PERM_AUTHORIZE, PERM_REVOKE,
                                        PERM_UNDO, PUNCTURE_BYTES,
@@ -78,15 +83,18 @@ _TRACKER_INTRO_SALT = 1 << 20
 _COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
              "requests_dropped", "punctures", "msgs_forwarded", "bytes_up",
              "bytes_down", "accepted_by_meta")
-# ... and the Timeline's (zero-width leaves without it).
-_TIMELINE_COUNTERS = ("msgs_rejected", "auth_unwound", "msgs_retro")
+# ... the Timeline's and the blacklist's (zero-width leaves without them).
+_TIMELINE_COUNTERS = ("auth_unwound", "msgs_retro")
+_MALICIOUS_COUNTERS = ("conflicts", "convictions_rx")
 
 
 def check_slice(cfg: CommunityConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
     is off the ported slice (the legacy or byte-diet store, every plane
     and protocol feature flag at its default but the Timeline, LastSync
-    history, meta priorities and DESC sync; public NAT)."""
+    history, meta priorities and DESC sync, the identity gate,
+    sequence-numbered metas and double-sign conviction with its gossip;
+    public NAT)."""
     off = [
         ("sync_enabled", cfg.store_diet and not cfg.sync_enabled),
         ("faults", cfg.faults != FaultModel()),
@@ -100,14 +108,9 @@ def check_slice(cfg: CommunityConfig) -> None:
         ("proof_requests", cfg.proof_requests),
         ("seq_requests", cfg.seq_requests),
         ("msg_requests", cfg.msg_requests),
-        ("identity_enabled", cfg.identity_enabled),
-        ("identity_required", cfg.identity_required),
         ("identity_requests", cfg.identity_requests),
-        ("malicious_enabled", cfg.malicious_enabled),
-        ("malicious_gossip", cfg.malicious_gossip),
         ("double_meta_mask", bool(cfg.double_meta_mask)),
         ("direct_meta_mask", bool(cfg.direct_meta_mask)),
-        ("seq_meta_mask", bool(cfg.seq_meta_mask)),
         ("p_symmetric", cfg.p_symmetric > 0.0),
     ]
     for name, is_off in off:
@@ -116,8 +119,9 @@ def check_slice(cfg: CommunityConfig) -> None:
                 f"CommunityConfig.{name} is off the ported slice (the "
                 "legacy-store and byte-diet rounds with every optional "
                 "plane and feature flag at its default but the Timeline, "
-                "LastSync history, meta priorities and DESC sync; the diet "
-                "needs sync_enabled)")
+                "LastSync history, meta priorities, DESC sync, the identity "
+                "gate, sequence numbers and double-sign conviction; the "
+                "diet needs sync_enabled)")
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -541,8 +545,16 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     acc["accepted_by_meta"] = torch.zeros((n, cfg.n_meta + 1),
                                           dtype=torch.int64, device=dev)
     tline = cfg.timeline_enabled
+    mal_on = cfg.malicious_enabled
+    gossip = mal_on and cfg.malicious_gossip
     if tline:
         acc.update({name: z64.clone() for name in _TIMELINE_COUNTERS})
+    if mal_on:
+        acc.update({name: z64.clone() for name in _MALICIOUS_COUNTERS})
+    # The intake gates that reject (the blacklist counts its own).
+    gated = tline or bool(cfg.seq_meta_mask) or cfg.identity_required
+    if gated or mal_on:
+        acc["msgs_rejected"] = z64.clone()
     bup, bdown = z64.clone(), z64.clone()
     rng_range = cfg.acceptable_global_time_range
     # Byte-diet store (storediet.py): arrivals land in the staging buffer,
@@ -585,6 +597,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     global_time, session = wide(state.global_time), wide(state.session)
     loaded = state.loaded
     auth = _auth(state)
+    mal = state.mal_member              # u32 [N, k_malicious] convictions
     if cfg.churn_rate > 0.0:
         reborn = state.alive & ~state.is_tracker & (
             rng.rand_uniform(seed, rnd, idx, rng.P_CHURN)
@@ -614,6 +627,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             member=_fill(m1, auth.member, EMPTY_U32),
             mask=_fill(m1, auth.mask, 0), gt=_fill(m1, auth.gt, 0),
             rev=auth.rev & ~m1, issuer=_fill(m1, auth.issuer, EMPTY_U32))
+        # Convictions live in the process's memory: they die with it.
+        mal = _fill(m1, mal, EMPTY_U32)
         global_time = torch.where(reborn, 1, global_time)
         session = session + reborn.to(torch.int64)
         loaded = torch.where(reborn, True, loaded)
@@ -1013,6 +1028,42 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         if tline:
             # A hard-killed peer takes in nothing at all.
             in_ok = in_ok & ~killed[:, None]
+        if mal_on:
+            # Double-sign conviction: an arrival matching a stored
+            # record's (member, gt) but differing in content convicts its
+            # author; then this batch's (and every later) record by a
+            # convicted member is rejected.
+            pre_mal = mal
+            conflict = in_ok & intake.conflict(stc, in_member, in_gt, in_meta,
+                                               in_payload, in_aux)
+            mf = tl.fold_set(mal, in_member, conflict)
+            mal = mf.table
+            acc["conflicts"] += mf.n_inserted
+            acc["msgs_dropped"] += mf.n_dropped
+            mem_b = bits(in_member)[:, :, None]
+            if gossip:
+                # A gossiped claim (dispersy-malicious-proof) convicts the
+                # member it names, unless its claimant is blacklisted
+                # after the eyewitness fold.
+                black0 = (bits(mal)[:, None, :] == mem_b).any(-1)
+                claims = in_ok & ~black0 & (in_meta == META_MALICIOUS)
+                cf = tl.fold_set(mal, in_payload, claims)
+                mal = cf.table
+                acc["convictions_rx"] += cf.n_inserted
+                acc["msgs_dropped"] += cf.n_dropped
+                # The eyewitness's proof names the batch's first conflict
+                # by a member not blacklisted before this batch; it is
+                # authored after the store merge (below).
+                was_black = (bits(pre_mal)[:, None, :] == mem_b).any(-1)
+                gospick = conflict & ~was_black
+                gossip_now = gospick.any(1)
+                gj = gospick.to(torch.int8).argmax(1, keepdim=True)
+                g_member = unbits(torch.gather(bits(in_member), 1, gj),
+                                  torch.uint32)                  # [N, 1]
+                g_gt = unbits(torch.gather(bits(in_gt), 1, gj), torch.uint32)
+            is_black = (bits(mal)[:, None, :] == mem_b).any(-1)
+            acc["msgs_rejected"] += (in_ok & is_black).sum(dim=1)
+            in_ok = in_ok & ~is_black
         # Freshness: not already stored on UNIQUE(member, global_time) and
         # not a duplicate of an earlier record in this batch.  Under the
         # diet "stored" is a query of the epoch digest, so quiet rounds
@@ -1037,9 +1088,15 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             auth, accept = chk.auth, chk.accept
             batch = batch._replace(flags=chk.flags)
             acc["msgs_dropped"] += chk.fold_lost
-            acc["msgs_rejected"] += (in_ok & ~accept).sum(dim=1)
         else:
             accept = in_ok
+        if cfg.identity_required:
+            accept = _identity_gate(cfg, stc, batch, accept)
+        if cfg.seq_meta_mask:
+            accept = accept & _seq_chain_ok(cfg, stc, batch, in_store,
+                                            accept)
+        if gated:
+            acc["msgs_rejected"] += (in_ok & ~accept).sum(dim=1)
         fresh = accept & ~in_store & ~dup_in_batch           # [N, B]
         bucket = torch.where(in_meta.to(torch.int64) < cfg.n_meta,
                              in_meta.to(torch.int64), cfg.n_meta)
@@ -1080,6 +1137,26 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             hit = hit & (stc.meta < 32)
             stc = stc._replace(flags=torch.where(
                 hit, stc.flags | FLAG_UNDONE, stc.flags))
+        if gossip:
+            # The eyewitness authors its dispersy-malicious-proof record
+            # now, after the merge and the clock fold, as a create would:
+            # one record a round (payload the convicted member, aux the
+            # conflicting global time).
+            g_gt_new = (global_time + 1) & MASK
+            proof = st.StoreCols(
+                gt=narrow(g_gt_new)[:, None], member=idx_u32[:, None],
+                meta=torch.full((n, 1), META_MALICIOUS, dtype=torch.uint8,
+                                device=dev),
+                payload=g_member, aux=g_gt,
+                flags=torch.zeros((n, 1), dtype=torch.uint8, device=dev))
+            gins = st.store_insert(stc, proof, gossip_now[:, None],
+                                   history=cfg.history)
+            stc = gins.store
+            global_time = torch.where(gossip_now, g_gt_new, global_time)
+            acc["msgs_stored"] += gins.n_inserted
+            acc["msgs_dropped"] += (gins.n_dropped.to(torch.int64)
+                                    + gins.n_evicted)
+            acc["accepted_by_meta"][:, cfg.n_meta] += gossip_now
         # Next round's forward batch = F fresh records, aux at the store's
         # width: the first F in batch order, or under a timeline or mixed
         # priorities the F highest-priority ones (ties by batch order).
@@ -1101,6 +1178,12 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
              for col in (in_gt, in_member, in_meta, in_payload,
                          cast(in_aux, state.fwd_aux.dtype))],
             fslot, fb))
+        if gossip and fb > 0:
+            # The proof takes a forward slot as a create does: the first
+            # free one, else the newest relayed entry's.
+            put = st.count_valid(fwd[0]).to(torch.int64).clamp(max=fb - 1)
+            fwd = tuple(_put_slot(cur, put, gossip_now, val)
+                        for cur, val in zip(fwd, proof[:5]))
         if tline:
             # The retro re-walk runs when a fresh revoke folded, or a
             # table eviction displaced a row, anywhere this round (the
@@ -1152,6 +1235,17 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         dig = _digest_rebuild(stc, cfg, sdiet.epoch_of(cfg, rnd_h) + 1, dev)
 
     # ---- wrap up --------------------------------------------------------
+    if mal_on:
+        # Convicted members leave the candidate table: the walker visits
+        # no provably malicious peer.
+        bad = (tab.peer != NO_PEER) & (
+            tab.peer[:, :, None] == bits(mal)[:, None, :]).any(-1)
+        never = _f32(NEVER, dev)
+        tab = cand.CandTable(
+            peer=torch.where(bad, NO_PEER, tab.peer),
+            last_walk=torch.where(bad, never, tab.last_walk),
+            last_stumble=torch.where(bad, never, tab.last_stumble),
+            last_intro=torch.where(bad, never, tab.last_intro))
     if cfg.auto_load:
         # Any community packet that reached an unloaded peer loads its
         # instance for the next round.
@@ -1175,11 +1269,60 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
-        auth_rev=auth.rev, auth_issuer=auth.issuer,
+        auth_rev=auth.rev, auth_issuer=auth.issuer, mal_member=mal,
         stats=_stats_out(state, acc),
         time=now + _f32(cfg.walk_interval, dev),
         round_index=narrow(rnd + 1),
     )
+
+
+def _identity_gate(cfg: CommunityConfig, stc: st.StoreCols,
+                   batch: st.StoreCols, accept) -> torch.Tensor:
+    """``accept`` (bool[N, B]) through the unknown-member gate: a user
+    record needs its author's dispersy-identity record in the receiver's
+    store; control records are exempt."""
+    have_id = intake.identity_stored(stc, batch.member)
+    return accept & ((batch.meta >= cfg.n_meta) | have_id)
+
+
+def _seq_chain_ok(cfg: CommunityConfig, stc: st.StoreCols,
+                  batch: st.StoreCols, in_store, accept) -> torch.Tensor:
+    """bool[N, B]: the sequence-chain test of the batch.  A record of a
+    sequenced meta that is not already stored passes only if its sequence
+    number (``aux``) is one above the highest its (member, meta) has so
+    far -- the store's (``seq_stored_max``), raised by the earlier
+    entries of this batch that passed and were accepted -- so a chain is
+    taken strictly in order, and a gap waits for the Bloom pull to
+    re-offer the missing link.  A loop over the batch, as the JAX
+    package's ``lax.fori_loop``."""
+    meta = batch.meta.to(torch.int64)
+    is_seq = ((((cfg.seq_meta_mask >> meta.clamp(max=31)) & 1) == 1)
+              & (meta < cfg.n_meta))
+    check = is_seq & ~in_store
+    best = wide(intake.seq_stored_max(stc, batch.member, batch.meta))
+    aux = wide(batch.aux)
+    group = (wide(batch.member) << 8) | meta       # one key per (member, meta)
+    ok = []
+    for j in range(aux.shape[1]):
+        aux_j = aux[:, j]
+        chain = aux_j == ((best[:, j] + 1) & MASK)
+        ok.append(~check[:, j] | chain)
+        took = accept[:, j] & check[:, j] & chain
+        grp = (group == group[:, j:j + 1]) & took[:, None]
+        best = torch.where(grp, torch.maximum(best, aux_j[:, None]), best)
+    return torch.stack(ok, dim=1)
+
+
+def _put_slot(cur: torch.Tensor, put: torch.Tensor, mask: torch.Tensor,
+              val: torch.Tensor) -> torch.Tensor:
+    """``cur`` [N, F] with ``val`` (a column of N values, any unsigned
+    width) written at column ``put`` (int64 [N]) on the masked rows."""
+    rows = torch.arange(cur.shape[0], device=cur.device)
+    cb = bits(cur).clone()
+    old = cb[rows, put]
+    cb[rows, put] = torch.where(mask, bits(cast(val.reshape(-1), cur.dtype)),
+                                old)
+    return unbits(cb, cur.dtype)
 
 
 def _digest_rebuild(stc: st.StoreCols, cfg: CommunityConfig, epoch: int,
@@ -1200,6 +1343,9 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     """Application send: each masked (and loaded) peer authors one record,
     claims global_time + 1, stores it locally and puts it in its forward
     buffer (displacing the newest relayed entry when the buffer is full).
+    On a sequenced meta the author stamps ``aux`` with its next sequence
+    number (one above the highest its own store holds), whatever the
+    caller passed.
 
     Control metas (authorize, revoke, undo-own, undo-other,
     dynamic-settings, destroy) need ``timeline_enabled``.  Under a
@@ -1230,6 +1376,13 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     gt_new = wide(state.global_time) + 1
     auth = _auth(state)
     stats = {}
+    if meta < cfg.n_meta and (cfg.seq_meta_mask >> meta) & 1:
+        # The author stamps the next sequence number of (itself, meta):
+        # one above the highest its own store holds.
+        own = ((wide(state.store_member) == idx[:, None])
+               & (state.store_meta == meta)
+               & (wide(state.store_gt) != EMPTY_U32))
+        aux = (torch.where(own, wide(state.store_aux), 0).amax(1) + 1) & MASK
     if cfg.timeline_enabled:
         author_mask = author_mask & _author_allowed(
             state, cfg, meta, narrow(payload), narrow(aux), narrow(gt_new))
@@ -1286,13 +1439,7 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
            state.fwd_payload, state.fwd_aux]
     if fb > 0:
         put = st.count_valid(state.fwd_gt).to(torch.int64).clamp(max=fb - 1)
-
-        def buf(cur, val):
-            cb = bits(cur).clone()
-            old = cb[idx, put]
-            cb[idx, put] = torch.where(author_mask, bits(val), old)
-            return unbits(cb, cur.dtype)
-        fwd = [buf(cur, cast(col[:, 0], cur.dtype)) for cur, col in zip(
+        fwd = [_put_slot(cur, put, author_mask, col) for cur, col in zip(
             fwd, (new.gt, new.member, new.meta, new.payload, new.aux))]
     abm = wide(state.stats.accepted_by_meta)
     abm[:, min(meta, cfg.n_meta)] += author_mask.to(torch.int64)

@@ -43,7 +43,8 @@ LAUNCHES = {"deliver": 0, "bloom_build": 0, "bloom_query": 0,
             "dup_earlier": 0, "timeline_check": 0, "timeline_check_grant": 0,
             "store_match_flip": 0, "store_match_undo_marked": 0,
             "store_match_meta_of": 0, "store_match_undo_hits": 0,
-            "store_remove": 0}
+            "store_remove": 0, "store_probe_conflict": 0,
+            "store_probe_identity": 0, "store_probe_seq_max": 0}
 _LIBS: dict = {}
 MAX_COLS = 8           # csrc/deliver.cu, csrc/compact.cu MAX_COLS
 DELIVER_MAX_INBOX = 2048   # csrc/deliver.cu SEL_HALF
@@ -540,6 +541,53 @@ def store_match(mode: str, w_cols, q_cols):
                          w2, wv[0] if wv else w1, q1, q2,
                          fn=it.launch_match)
     LAUNCHES[f"store_match_{mode}"] += 1
+    return out
+
+
+# ---- K11: store probe (Triton) -----------------------------------------------
+
+# The store columns each K11 mode reads, by StoreCols name, and its batch
+# columns, each with its dtype.
+_PROBE_STORE = {"conflict": ("gt", "member", "meta", "payload", "aux"),
+                "identity": ("meta", "member"),
+                "seq_max": ("gt", "member", "meta", "aux")}
+_PROBE_QUERY = {"conflict": ("member", "gt", "meta", "payload", "aux"),
+                "identity": ("member",),
+                "seq_max": ("member", "meta")}
+
+
+def store_probe(mode: str, s_cols, q_cols):
+    """K11 in ``mode`` (:data:`.intake_triton.PROBE_MODES`): ``s_cols`` the
+    mode's store columns [N, M] and ``q_cols`` its batch columns [N, B],
+    in the order of :data:`_PROBE_STORE` / :data:`_PROBE_QUERY` (metas
+    u8, every other column u32).  Returns bool [N, B], or u32 [N, B] for
+    ``"seq_max"``."""
+    from dispersy_tpu_torch.kernels import intake_triton as it
+    if mode not in it.PROBE_MODES:
+        raise KernelError(f"store_probe: unknown mode {mode!r}")
+    names_s, names_q = _PROBE_STORE[mode], _PROBE_QUERY[mode]
+    if len(s_cols) != len(names_s) or len(q_cols) != len(names_q):
+        raise KernelError(f"store_probe {mode}: columns {names_s} and "
+                          f"{names_q}")
+    s = dict(zip(names_s, s_cols))
+    q = dict(zip(names_q, q_cols))
+    n, m = s["member"].shape
+    b = q["member"].shape[1] if q["member"].dim() == 2 else 0
+    for side, cols, shape in (("store", s, (n, m)), ("q", q, (n, b))):
+        for name, c in cols.items():
+            dt = torch.uint8 if name == "meta" else torch.uint32
+            _req(c, f"store_probe.{mode}.{side}_{name}", (dt,), shape)
+    if m < 1 or b < 1:
+        raise KernelError(f"store_probe {mode}: M = {m} and B = {b} must "
+                          "be >= 1")
+    # A mode's unread columns point at one of its read columns.
+    sm, qm = s["member"], q["member"]
+    out = _intake_launch(
+        f"store_probe {mode}", it.PROBE_MODES[mode], s.get("gt", sm), sm,
+        s["meta"], s.get("payload", sm), s.get("aux", sm), qm,
+        q.get("gt", qm), q.get("meta", s["meta"]),
+        q.get("payload", qm), q.get("aux", qm), fn=it.launch_probe)
+    LAUNCHES[f"store_probe_{mode}"] += 1
     return out
 
 

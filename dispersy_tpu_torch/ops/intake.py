@@ -1,7 +1,8 @@
 """Intake checks: batch-vs-store membership, in-batch dedup and the
 Timeline's store replays (port of ``in_store``, ``dup_earlier``,
-``flip_best``, ``flip_best_batch``, ``undo_marked``, ``undo_hits_store``
-and ``stored_meta_of`` in ``dispersy_tpu/ops/intake.py``).
+``flip_best``, ``flip_best_batch``, ``undo_marked``, ``undo_hits_store``,
+``stored_meta_of``, ``conflict``, ``identity_stored`` and
+``seq_stored_max`` in ``dispersy_tpu/ops/intake.py``).
 
 ``in_store`` and ``dup_earlier`` are compare-and-any reductions per (row, batch entry): over the M
 store slots for ``in_store``, over the earlier batch entries for
@@ -13,7 +14,9 @@ without a store operand: under the byte-diet store the "already stored?"
 test is a digest query, so a quiet round reads no ring bytes.  Only
 equality is tested, so u32 columns are compared through their int32 bit
 views.  The replays below share one Triton kernel (K9 ``store_match``)
-in four modes.
+in four modes, and the hardened community's three store probes --
+double-sign evidence, the identity gate and the sequence-chain base --
+another (K11 ``store_probe``) in three.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from dispersy_tpu_torch import kernels
-from dispersy_tpu_torch.config import (META_DYNAMIC, META_UNDO_OTHER,
+from dispersy_tpu_torch.config import (EMPTY_U32, META_DYNAMIC,
+                                       META_IDENTITY, META_UNDO_OTHER,
                                        META_UNDO_OWN)
 from dispersy_tpu_torch.u32 import MASK, bits, narrow, wide
 
@@ -142,3 +146,62 @@ def stored_meta_of(stc, member, gt) -> torch.Tensor:
         return stored_meta_of_plain(stc, member, gt)
     return kernels.store_match("meta_of", (stc.meta, stc.member, stc.gt),
                                (member, gt))
+
+
+# ---- the hardened community's store probes (K11 store_probe) ----------------
+# Each is one compare-and-reduce pass per row: the [N, B] batch entries
+# against the row's [N, M] store.  On a CUDA tensor every one goes
+# through the Triton kernel of ``kernels/intake_triton.py`` in its MODE;
+# on a CPU tensor through the plain broadcast form beside it.
+
+def conflict_plain(stc, member, gt, meta, payload, aux) -> torch.Tensor:
+    same = ((bits(stc.member)[:, None, :] == bits(member)[:, :, None])
+            & (bits(stc.gt)[:, None, :] == bits(gt)[:, :, None])
+            & (wide(stc.gt)[:, None, :] != EMPTY_U32))
+    differs = ((stc.meta[:, None, :] != meta[:, :, None])
+               | (bits(stc.payload)[:, None, :] != bits(payload)[:, :, None])
+               | (bits(stc.aux)[:, None, :] != bits(aux)[:, :, None]))
+    return (same & differs).any(-1)
+
+
+def conflict(stc, member, gt, meta, payload, aux) -> torch.Tensor:
+    """bool[N, B]: does a live stored row share (member, gt) with the
+    batch entry but differ in (meta, payload, aux)?  (Double-sign
+    evidence.)  u32 columns; ``meta`` u8 as the store's."""
+    if gt.device.type == "cpu":
+        return conflict_plain(stc, member, gt, meta, payload, aux)
+    return kernels.store_probe(
+        "conflict", (stc.gt, stc.member, stc.meta, stc.payload, stc.aux),
+        (member, gt, meta, payload, aux))
+
+
+def identity_stored_plain(stc, member) -> torch.Tensor:
+    rows = stc.meta == META_IDENTITY
+    return (rows[:, None, :]
+            & (bits(stc.member)[:, None, :] == bits(member)[:, :, None])
+            ).any(-1)
+
+
+def identity_stored(stc, member) -> torch.Tensor:
+    """bool[N, B]: does the store hold a dispersy-identity record of
+    ``member``?  (No gt test, as in the JAX package.)"""
+    if member.device.type == "cpu":
+        return identity_stored_plain(stc, member)
+    return kernels.store_probe("identity", (stc.meta, stc.member), (member,))
+
+
+def seq_stored_max_plain(stc, member, meta) -> torch.Tensor:
+    same = ((bits(stc.member)[:, None, :] == bits(member)[:, :, None])
+            & (stc.meta[:, None, :] == meta[:, :, None])
+            & (wide(stc.gt)[:, None, :] != EMPTY_U32))
+    return narrow(torch.where(same, wide(stc.aux)[:, None, :], 0).amax(-1))
+
+
+def seq_stored_max(stc, member, meta) -> torch.Tensor:
+    """u32[N, B]: the highest stored ``aux`` (the sequence number) over
+    the live rows of the entry's (member, meta), else 0."""
+    if member.device.type == "cpu":
+        return seq_stored_max_plain(stc, member, meta)
+    return kernels.store_probe("seq_max",
+                               (stc.gt, stc.member, stc.meta, stc.aux),
+                               (member, meta))

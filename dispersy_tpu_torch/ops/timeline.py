@@ -10,9 +10,10 @@ CPU tensor takes the plain version beside them, a CUDA tensor the
 hand-written kernel of ``csrc/timeline.cu`` (K8) or an error.
 
 :func:`fold` (insert accepted authorize/revoke records, keeping the A
-highest rows) and :func:`revalidate` (re-walk every row's granting
-chain) have no TPU-only form in the JAX package; they run as plain
-PyTorch on both devices.  ``fold`` is a loop over the batch, as the JAX
+highest rows), :func:`revalidate` (re-walk every row's granting chain)
+and :func:`fold_set` (the bounded blacklist insert) have no TPU-only
+form in the JAX package; they run as plain PyTorch on both devices.
+``fold`` and ``fold_set`` are loops over the batch, as the JAX
 package's ``lax.fori_loop`` is.
 
 u32 values are compared through int64 carriers (``u32.wide``).
@@ -28,7 +29,7 @@ from dispersy_tpu_torch import kernels
 from dispersy_tpu_torch.config import (EMPTY_U32, MAX_TIMELINE_META,
                                        PERM_AUTHORIZE, PERM_PERMIT,
                                        PERM_REVOKE)
-from dispersy_tpu_torch.u32 import narrow, wide
+from dispersy_tpu_torch.u32 import bits, narrow, unbits, wide
 
 
 class AuthTable(NamedTuple):
@@ -220,3 +221,34 @@ def revalidate(tab: AuthTable, founder, n_meta: int) -> torch.Tensor:
             ok = ok & (~need | granted)
         keep = live & (ok | by_founder)
     return keep
+
+
+class SetFoldResult(NamedTuple):
+    table: torch.Tensor       # u32[N, S] the updated member set
+    n_inserted: torch.Tensor  # i32[N] members newly added
+    n_dropped: torch.Tensor   # i32[N] members lost to a full table
+
+
+def fold_set(tab, member, valid) -> SetFoldResult:
+    """Insert [N, B] member ids (u32) into each row's bounded member set
+    ``tab`` (u32 [N, S], ``EMPTY_U32`` free), in batch order: idempotent
+    per member, first free slot, overflow counted."""
+    n, b = member.shape
+    dev = member.device
+    t = bits(tab)
+    mb_all = bits(member)
+    slots = torch.arange(tab.shape[1], device=dev)
+    inserted = torch.zeros(n, dtype=torch.int32, device=dev)
+    dropped = torch.zeros(n, dtype=torch.int32, device=dev)
+    for i in range(b):
+        mb = mb_all[:, i:i + 1]
+        want = valid[:, i] & ~(t == mb).any(1)
+        free = t == -1
+        can = want & free.any(1)
+        slot = free.to(torch.int8).argmax(1)
+        t = torch.where((slots[None, :] == slot[:, None]) & can[:, None],
+                        mb, t)
+        inserted += can.to(torch.int32)
+        dropped += (want & ~can).to(torch.int32)
+    return SetFoldResult(table=unbits(t, torch.uint32), n_inserted=inserted,
+                         n_dropped=dropped)

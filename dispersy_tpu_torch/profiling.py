@@ -1,5 +1,6 @@
 """The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
-the permissioned community at that shape, and the schedule that drives it.
+the permissioned and the hardened communities at that shape, the
+schedules that drive them, and the card's profile of a main path.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -13,9 +14,9 @@ import numpy as np
 
 from dispersy_tpu_torch.config import (DEFAULT_PRIORITY, EMPTY_U32,
                                        META_AUTHORIZE, META_DESTROY,
-                                       META_DYNAMIC, META_REVOKE,
-                                       META_UNDO_OTHER, CommunityConfig,
-                                       perm_bit)
+                                       META_DYNAMIC, META_IDENTITY,
+                                       META_REVOKE, META_UNDO_OTHER,
+                                       CommunityConfig, perm_bit)
 from dispersy_tpu_torch.planes import StoreConfig
 
 
@@ -169,13 +170,115 @@ def permissioned_schedule(n_peers: int, destroy: bool = True) -> list:
     return out
 
 
+def hardened_config(n_peers: int) -> CommunityConfig:
+    """The hardened community at the slice's widths: what
+    ``dispersy_tpu/community.py`` compiles from the ``full-sync-text``
+    (meta 0) and ``sequence-text`` (meta 1, sequence numbers on) metas of
+    Dispersy's test community, with the identity gate (a user record
+    needs its author's dispersy-identity record stored) and double-sign
+    conviction with malicious-proof gossip (8 blacklist slots) on, on
+    the legacy ring."""
+    return slice_config(n_peers).replace(
+        n_meta=2, seq_meta_mask=0b10, last_sync_history=(0, 0),
+        meta_priority=(DEFAULT_PRIORITY,) * 2,
+        identity_enabled=True, identity_required=True,
+        malicious_enabled=True, k_malicious=8, malicious_gossip=True)
+
+
+# Metas of the hardened community, and the rounds of its sequence chain.
+TEXT, SEQ_TEXT = 0, 1
+SEQ_ROUNDS = (0, 1, 2, 4, 6)
+R_EQUIVOCATE = 4
+
+
+class Plant(NamedTuple):
+    """A record planted into each masked peer's own forward buffer before
+    ``step`` of ``round``, in the manner of a hand-crafted packet: it is
+    pushed in that round and stored nowhere by its author.  Member is the
+    peer, aux 0."""
+    round: int
+    peers: np.ndarray        # bool[N]
+    gt: np.ndarray           # uint32[N]
+    meta: int
+    payload: np.ndarray      # uint32[N]
+
+
+def hardened_roles(n_peers: int) -> dict:
+    """The authors (every 64th non-tracker peer) and the equivocators
+    (every 4096th, at least 4 of the authors at small N), as bool[N]
+    masks, and each author's ordinal ``j`` (-1 for the rest)."""
+    t = hardened_config(n_peers).n_trackers
+    idx = np.arange(n_peers)
+    authors = (idx >= t) & ((idx - t) % 64 == 0)
+    j = np.where(authors, (idx - t) // 64, -1)
+    stride = max(1, min(64, int(authors.sum()) // 4))
+    return {"authors": authors, "j": j,
+            "equivocators": authors & (j % stride == 0)}
+
+
+def post_gt(n_peers: int) -> np.ndarray:
+    """uint32[N]: the global time of each author's round-0 post.  Every
+    clock is 1 before round 0, whose creates run identity (a quarter of
+    the authors), post, sequence record -- so the post claims 3 after a
+    round-0 identity, else 2."""
+    j = hardened_roles(n_peers)["j"]
+    return np.where(j % 4 == 0, 3, 2).astype(np.uint32)
+
+
+def hardened_schedule(n_peers: int, registry=None) -> list:
+    """The hardened round's creates and plants, in call order.  The
+    authors publish their identities (payload the mid32 of ``registry``,
+    default ``crypto.MemberRegistry()``) over rounds 0-3, a quarter a
+    round; each posts once on meta 0 in round 0 and writes its
+    sequence-text chain (meta 1, payload its id + 1000 per link) in the
+    rounds of ``SEQ_ROUNDS``; in round 4 each equivocator plants a second
+    meta-0 record with its post's global time and another payload (its
+    id + 2^31) into its own forward buffer."""
+    from dispersy_tpu_torch.crypto import MemberRegistry
+    n = n_peers
+    roles = hardened_roles(n)
+    authors, j = roles["authors"], roles["j"]
+    idx = np.arange(n, dtype=np.uint32)
+    zero = np.zeros(n, np.uint32)
+    mid32 = zero.copy()
+    mid32[authors] = (registry or MemberRegistry()).mid32_of(
+        np.flatnonzero(authors))
+    ids = [Create(r, META_IDENTITY, authors & (j % 4 == r), mid32, zero)
+           for r in range(4)]
+    seq = [Create(r, SEQ_TEXT, authors, idx + 1000 * (k + 1), zero)
+           for k, r in enumerate(SEQ_ROUNDS)]
+    out = [ids[0], Create(0, TEXT, authors, idx, zero), seq[0]]
+    out += ids[1:] + seq[1:]
+    out.append(Plant(R_EQUIVOCATE, roles["equivocators"], post_gt(n), TEXT,
+                     idx + np.uint32(1 << 31)))
+    return sorted(out, key=lambda c: c.round)
+
+
+FWD_COLS = ("gt", "member", "meta", "payload", "aux")
+
+
+def plant_fwd(fwd: dict, plant: Plant) -> dict:
+    """The forward-buffer columns ``fwd`` (``FWD_COLS`` -> int64 [N, F]
+    numpy arrays, of either package's state) with ``plant``'s record at
+    each masked peer's first free slot, the last one when the buffer is
+    full (the slot a create takes)."""
+    ids = np.flatnonzero(plant.peers)
+    out = {k: np.array(v, dtype=np.int64) for k, v in fwd.items()}
+    f = out["gt"].shape[1]
+    put = np.minimum((out["gt"][ids] != EMPTY_U32).sum(1), f - 1)
+    for k, v in zip(FWD_COLS, (plant.gt[ids], ids, plant.meta,
+                               plant.payload[ids], 0)):
+        out[k][ids, put] = v
+    return out
+
+
 def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
-    """Make the creates of round ``rnd`` on a port state, in order (an
-    undo-other's aux read from the state's own store rows)."""
+    """Make the creates and plants of round ``rnd`` on a port state, in
+    order (an undo-other's aux read from the state's own store rows)."""
     import torch
 
     from dispersy_tpu_torch import engine
-    from dispersy_tpu_torch.u32 import bits, wide
+    from dispersy_tpu_torch.u32 import bits, cast, wide
 
     def rows(ids):
         # Indexed through the signed views (no u32 indexing on the card).
@@ -184,6 +287,14 @@ def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
                      for k in ("store_gt", "store_member", "store_meta"))
     for c in creates:
         if c.round != rnd:
+            continue
+        if isinstance(c, Plant):
+            cols = {k: getattr(state, f"fwd_{k}") for k in FWD_COLS}
+            new = plant_fwd({k: wide(v).cpu().numpy()
+                             for k, v in cols.items()}, c)
+            state = state.replace(**{
+                f"fwd_{k}": cast(torch.from_numpy(new[k]).to(state.device),
+                                 cols[k].dtype) for k in FWD_COLS})
             continue
         aux = c.aux if c.aux is not None else pin_gt(c.payload, c.authors,
                                                      rows)
@@ -218,7 +329,7 @@ OWN_KERNEL_PREFIX = "dk_"
 
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                    seed: int = 0, top: int = 15, diet: bool = False,
-                   timeline: bool = False) -> dict:
+                   timeline: bool = False, hardened: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
     ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
@@ -226,14 +337,17 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     of the cohort cadence); with ``timeline``, the permissioned round of
     :func:`permissioned_config` driven by :func:`permissioned_schedule`
     (no destroy; the 3 traced rounds are rounds 3-5 of the schedule, the
-    moderators' delegations included).  Reports wall time; device busy time (the sum
+    moderators' delegations included); with ``hardened``, the hardened
+    round of :func:`hardened_config` driven by :func:`hardened_schedule`
+    (the traced rounds 3-5 hold the round-4 equivocations and the
+    convictions and gossip they start).  Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
     the share of it in the hand-written kernels; and the ``top`` entries
     by device time, both as PyTorch ops (host-side events, each charged
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
-    ``python -m dispersy_tpu_torch.profiling [--diet | --timeline]``
-    prints it as one JSON line."""
+    ``python -m dispersy_tpu_torch.profiling [--diet | --timeline |
+    --hardened]`` prints it as one JSON line."""
     import time
 
     import torch
@@ -244,9 +358,12 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    if diet and timeline:
-        raise ValueError("the Timeline runs on the legacy ring only")
-    if timeline:
+    if diet + timeline + hardened > 1:
+        raise ValueError("pick one of diet, timeline and hardened")
+    if hardened:
+        cfg = hardened_config(n_peers)
+        creates = hardened_schedule(n_peers)
+    elif timeline:
         cfg = permissioned_config(n_peers)
         creates = permissioned_schedule(n_peers, destroy=False)
     else:
@@ -287,7 +404,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     busy = ms(device)
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
-        "timeline": timeline,
+        "timeline": timeline, "hardened": hardened,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
@@ -308,6 +425,9 @@ if __name__ == "__main__":
     which.add_argument("--timeline", action="store_true",
                        help="trace the permissioned round of "
                        "permissioned_config")
+    which.add_argument("--hardened", action="store_true",
+                       help="trace the hardened round of hardened_config")
     args = ap.parse_args()
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
+                                    hardened=args.hardened,
                                     rounds=5 if args.timeline else 3)))

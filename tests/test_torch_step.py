@@ -27,7 +27,8 @@ from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch import profiling
 from dispersy_tpu_torch.bridge import first_difference
 from dispersy_tpu_torch.config import META_DYNAMIC
-from dispersy_tpu_torch.planes import StoreConfig
+from dispersy_tpu_torch.planes import (OverloadConfig, StoreConfig,
+                                       TelemetryConfig)
 from dispersy_tpu_torch.storediet import phase_of
 
 BASE = dict(n_peers=128, n_trackers=2, k_candidates=8, msg_capacity=32)
@@ -163,9 +164,9 @@ def test_diet_off_slice_raises(field):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("seq_meta_mask", 1),
-    ("malicious_enabled", True),
-    ("identity_enabled", True),
+    ("double_meta_mask", 1),
+    ("telemetry", TelemetryConfig(enabled=True)),
+    ("overload", OverloadConfig(enabled=True)),
     ("p_symmetric", 0.25),
 ])
 def test_off_slice_config_raises(field, value):
@@ -194,8 +195,9 @@ def jax_config(pc):
 
 def run_both(pc, rounds, creates, seed=5, degree=6, store=None):
     """Drive both packages through ``rounds`` rounds with the schedule's
-    creates; returns (JAX state, port state, the per-round first leaf
-    difference or None)."""
+    creates and plants; returns (JAX config, port config, JAX state, port
+    state, the first leaf difference after each round's creates and
+    after each round, or None)."""
     jc = jax_config(pc)
     if store is not None:
         jc = jc.replace(store=JaxStore(**store))
@@ -211,6 +213,13 @@ def run_both(pc, rounds, creates, seed=5, degree=6, store=None):
     for rnd in range(rounds):
         for c in creates:
             if c.round != rnd:
+                continue
+            if isinstance(c, profiling.Plant):
+                cols = {k: np.asarray(getattr(js, f"fwd_{k}"))
+                        for k in profiling.FWD_COLS}
+                new = profiling.plant_fwd(cols, c)
+                js = js.replace(**{f"fwd_{k}": jnp.asarray(
+                    new[k].astype(cols[k].dtype)) for k in cols})
                 continue
             aux = (c.aux if c.aux is not None
                    else profiling.pin_gt(c.payload, c.authors, rows))
@@ -326,6 +335,46 @@ def test_permissioned_config_is_the_forum_compile():
     for f in dataclasses.fields(pc):
         if not dataclasses.is_dataclass(getattr(pc, f.name)):
             assert getattr(pc, f.name) == getattr(jc, f.name), f.name
+
+
+def test_hardened_config_is_the_debug_community_compile():
+    """hardened_config equals, field for field, what the JAX Community
+    compiles from the full-sync-text and sequence-text declarations of
+    Dispersy's test community at the slice's widths, with the identity
+    gate and double-sign conviction with gossip on."""
+    from dispersy_tpu.community import (Community, CommunityDestination,
+                                        FullSyncDistribution,
+                                        MemberAuthentication, Message,
+                                        PublicResolution)
+
+    class Debug(Community):
+        def initiate_meta_messages(self):
+            return [
+                Message("full-sync-text", MemberAuthentication(),
+                        PublicResolution(), FullSyncDistribution(),
+                        CommunityDestination(node_count=3)),
+                Message("sequence-text", MemberAuthentication(),
+                        PublicResolution(),
+                        FullSyncDistribution(enable_sequence_number=True),
+                        CommunityDestination(node_count=3))]
+
+    hc = profiling.hardened_config(256)
+    sc = profiling.slice_config(256)
+    compiled = {"n_meta", "protected_meta_mask", "seq_meta_mask",
+                "direct_meta_mask", "desc_meta_mask", "last_sync_history",
+                "meta_priority", "dynamic_meta_mask", "timeline_enabled",
+                "forward_fanout", "n_peers"}
+    widths = {f.name: getattr(sc, f.name) for f in dataclasses.fields(sc)
+              if f.name not in compiled
+              and not dataclasses.is_dataclass(getattr(sc, f.name))
+              and getattr(sc, f.name) != getattr(CommunityConfig(n_peers=256),
+                                                 f.name)}
+    jc = Debug(n_peers=256, identity_enabled=True, identity_required=True,
+               malicious_enabled=True, k_malicious=8, malicious_gossip=True,
+               **widths).config
+    for f in dataclasses.fields(hc):
+        if not dataclasses.is_dataclass(getattr(hc, f.name)):
+            assert getattr(hc, f.name) == getattr(jc, f.name), f.name
 
 
 # ---- LastSync under the diet; meta priorities and DESC sync -----------------
