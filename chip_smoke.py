@@ -8,13 +8,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions; builds the CUDA kernels from ``dispersy_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, in parallel);
-2. kernels: every kernel of the four paths (K1-K11) on random inputs
+2. kernels: every kernel of the five paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes, the byte-diet round's (u16 aux columns, per-row
    Bloom salts, the cohort block, the staging buffer), the permissioned
    round's (the [N, 8] grant tables, the store replays in each K9 mode,
    store_remove, K3 with a LastSync history), then the hardened round's
-   (the store probes in each K11 mode, with planted hits) -- held bit
+   (the store probes in each K11 mode, with planted hits), then the
+   chaos round's (K12 on the capped push blast with admission classes
+   and on the exact request channel with receipts, where it must also
+   equal K1; K1 with classes on the unsharded push blast) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events beside the plain version, the bytes bound and, where one
    PyTorch call does the same work, that call;
@@ -25,7 +28,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    permissioned community for 22 rounds of
    ``profiling.permissioned_schedule`` (the destroy included), and the
    hardened community for 20 rounds of ``profiling.hardened_schedule``
-   (its convictions, gossip and stored identities checked after);
+   (its convictions, gossip and stored identities checked after), and
+   the chaos round sharded (``profiling.chaos_config(4096, 8, 64)``,
+   which must shed at the cross-shard cap) and unsharded (whose
+   overload plane must shed), 20 rounds each;
 4. main paths through the public entry points -- init_state,
    seed_overlay(8), the creates, warm-up and timed rounds -- each with
    every kernel's launch count read after it: the byte-diet round at
@@ -36,7 +42,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    schedule without the destroy; 3 + 5 rounds, the founder's revoke and
    its retro pass among them), and the hardened round of
    ``hardened_config(1 << 20)`` (3 + 5 rounds: identities over rounds
-   0-3, the sequence chain, the round-4 equivocations).
+   0-3, the sequence chain, the round-4 equivocations), and the chaos
+   round of ``chaos_config(1 << 20)`` sharded (3 + 5 rounds; the cap
+   must shed in the timed rounds) and unsharded (3 + 5 rounds, K1 with
+   admission classes), each printing its shed, recovery and health
+   totals.
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -60,6 +70,9 @@ N_PEERS = 1 << 20              # the full width: bench_config(1 << 20)
 PARITY_PEERS, PARITY_ROUNDS, DIET_PARITY_ROUNDS = 4096, 20, 24
 PERM_PARITY_ROUNDS = 22        # the whole schedule, the destroy included
 HARD_PARITY_ROUNDS = 20
+CHAOS_PARITY_ROUNDS, CHAOS_PARITY_BUDGET = 20, 64
+CHAOS_BUDGET = 4096            # the 1M main path's cross_shard_budget
+P_PUSH = 0.05                  # valid push edges in the chaos kernel rows
 WARMUP, ROUNDS = 3, 5          # the legacy and permissioned main paths
 DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
@@ -78,6 +91,12 @@ PERM_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert_history",
 HARD_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
              "rank_compact_many", "intake_checks", "store_probe_conflict",
              "store_probe_identity", "store_probe_seq_max")
+CHAOS_PATH = ("deliver", "deliver_ragged", "bloom_build", "bloom_query",
+              "digest_update", "store_insert", "rank_compact_many",
+              "store_stage", "dup_earlier")
+CHAOS_FLAT_PATH = ("deliver", "deliver_cls", "bloom_build", "bloom_query",
+                   "digest_update", "store_insert", "rank_compact_many",
+                   "store_stage", "dup_earlier")
 
 
 def fail(msg: str) -> None:
@@ -996,6 +1015,139 @@ def check_store_probe(x: Inputs, reps: int) -> list:
 HARD_KERNEL_CHECKS = (check_store_probe,)
 
 
+# ---- phase 2, the chaos round's call shapes ---------------------------------
+
+def push_blast(x: Inputs):
+    """The chaos round's push blast at 1M: the forward fan-out plus the
+    flooders' junk, six columns (u32 aux, the junk flag), a share
+    ``P_PUSH`` of valid edges, and the admission class of each meta."""
+    from dispersy_tpu_torch.ops import overload as ovo
+    cfg, n = x.cfg, x.cfg.n_peers
+    fm = cfg.faults
+    e = (n * cfg.forward_buffer * cfg.forward_fanout
+         + len(fm.flood_senders) * fm.flood_fanout)
+    cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u32(e),
+            x.flags(0.001, e)]
+    cls = ovo.admission_class(cols[2], cfg.n_meta,
+                              cfg.priorities).to(x.torch.uint8)
+    dst = x.torch.from_numpy(x.rs.integers(-1, n + 1, size=e)
+                             .astype(x.np.int32)).to(x.dev)
+    return e, cols, cls, dst, x.flags(P_PUSH, e)
+
+
+def row_sort_key(x: Inputs, dst, valid, cls, n, shards):
+    """The packed (destination, class, position) key of each [S, El] row
+    (the source sort's order; one ``torch.sort`` computes it)."""
+    torch = x.torch
+    e = dst.shape[0]
+    el = -(-e // shards)
+    ok = valid & (dst >= 0) & (dst < n)
+    key = torch.full((shards * el,), n, dtype=torch.int64, device=x.dev)
+    key[:e] = torch.where(ok, dst.long(), n)
+    c = torch.zeros(shards * el, dtype=torch.int64, device=x.dev)
+    if cls is not None:
+        c[:e] = cls.long()
+    lpos = torch.arange(shards * el, device=x.dev) % el
+    return ((key * 256 + c) * el + lpos).reshape(shards, el)
+
+
+def ragged_case(x: Inputs, dst, valid, cols, n, q, shards, budget, cls,
+                receipts):
+    """K12 and its plain version on one edge list: ``(kernel outputs,
+    plain outputs)``, inboxes, valid mask, drops, receipts, shed."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    out = kernels.deliver_ragged(dst, cols, valid, n, q, shards, budget, cls,
+                                 receipts)
+    want = inbox.deliver_ragged_plain(dst, cols, valid, n, q, shards, budget,
+                                      cls, receipts)
+    return ([*out[0], *out[1:]],
+            [*want.delivery.inbox, *want.delivery[1:], want.shed])
+
+
+def check_chaos_deliver(x: Inputs, reps: int) -> list:
+    """K12 at the sharded chaos round's 1M shapes: the capped push blast
+    with admission classes and no receipts (timed; its cap binds at
+    ``P_PUSH``), and the exact 2-column request channel with receipts
+    (timed), which must equal K1 on the same inputs."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    from dispersy_tpu_torch.u32 import narrow
+    cfg, n = x.cfg, x.cfg.n_peers
+    s, b = cfg.parallel.shards, cfg.parallel.cross_shard_budget
+    q = cfg.push_inbox
+    e, cols, cls, dst, valid = push_blast(x)
+    got, want = ragged_case(x, dst, valid, cols, n, q, s, b, cls, False)
+    landed, shed = int(got[len(cols)].sum()), int(got[-1].sum())
+    print(f"K12 push blast: E {e}, valid {int(valid.sum())}, landed "
+          f"{landed}, shed {shed}", flush=True)
+    if not shed:
+        fail("K12 push blast: the cross-shard cap never bound")
+    row_b = 4 * 4 + 1 + 1
+    moved = 6 * e + landed * row_b + n * q * (row_b + 1) + 4 * n + 5 * e
+    key = row_sort_key(x, dst, valid, cls, n, s)
+    rows = [timed_entry(
+        "deliver_ragged_push_cls", "cuda", "dispersy_tpu_torch/csrc/ragged.cu",
+        "dispersy_tpu/ops/inbox.py:217", got, want,
+        lambda: kernels.deliver_ragged(dst, cols, valid, n, q, s, b, cls,
+                                       False),
+        lambda: inbox.deliver_ragged_plain(dst, cols, valid, n, q, s, b, cls,
+                                           False), moved, reps,
+        library_fn=lambda: torch.sort(key, dim=1), kernel="deliver_ragged")]
+    rq = cfg.request_inbox
+    req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
+    rdst = torch.from_numpy(x.rs.integers(-1, n + 1, size=n)
+                            .astype(x.np.int32)).to(x.dev)
+    rvalid = x.flags(0.9, n)
+    rgot, rwant = ragged_case(x, rdst, rvalid, req, n, rq, s, 0, None, True)
+    k1 = kernels.deliver(rdst, req, rvalid, n, rq)
+    if max_abs_err(rgot[:-1], [*k1[0], *k1[1:]]) or bool(rgot[-1].any()):
+        fail("K12 at budget 0 differs from K1 on the request channel")
+    landed = int(rgot[len(req)].sum())
+    moved = 5 * n + landed * 8 + n * rq * 9 + 4 * n + 5 * n
+    rkey = row_sort_key(x, rdst, rvalid, None, n, s)
+    rows.append(timed_entry(
+        "deliver_ragged_request", "cuda", "dispersy_tpu_torch/csrc/ragged.cu",
+        "dispersy_tpu/ops/inbox.py:217", rgot, rwant,
+        lambda: kernels.deliver_ragged(rdst, req, rvalid, n, rq, s, 0, None,
+                                       True),
+        lambda: inbox.deliver_ragged_plain(rdst, req, rvalid, n, rq, s, 0,
+                                           None, True), moved, reps,
+        library_fn=lambda: torch.sort(rkey, dim=1), kernel="deliver_ragged"))
+    return rows
+
+
+def check_deliver_cls(x: Inputs, reps: int) -> list:
+    """K1 with admission classes on the unsharded chaos round's push
+    blast (E = N·F·C + the junk, Q = 16; timed)."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    cfg, n = x.cfg, x.cfg.n_peers
+    q = cfg.push_inbox
+    e, cols, cls, dst, valid = push_blast(x)
+    out = kernels.deliver(dst, cols, valid, n, q, cls)
+    want = inbox.deliver_plain(dst, cols, valid, n, q, cls)
+    landed = int(out[1].sum())
+    row_b = 4 * 4 + 1 + 1
+    moved = 6 * e + landed * row_b + n * q * (row_b + 1) + 4 * n + 4 * e
+    ok = valid & (dst >= 0) & (dst < n)
+    key = ((torch.where(ok, dst.long(), n) * 256 + cls.long()) * e
+           + torch.arange(e, device=x.dev))
+    return [timed_entry(
+        "deliver_cls_push", "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
+        "dispersy_tpu/ops/inbox.py:79", [*out[0], *out[1:]],
+        [*want.inbox, *want[1:]],
+        lambda: kernels.deliver(dst, cols, valid, n, q, cls),
+        lambda: inbox.deliver_plain(dst, cols, valid, n, q, cls), moved,
+        reps, library_fn=lambda: torch.sort(key), kernel="deliver_cls")]
+
+
+CHAOS_KERNEL_CHECKS = (check_chaos_deliver,)
+CHAOS_FLAT_KERNEL_CHECKS = (check_deliver_cls,)
+
+
 def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
     """Run ``checks`` on one config's shapes; each row notes the main
     ``path`` whose launch counts it takes."""
@@ -1063,6 +1215,19 @@ def check_hardened_parity(state, cfg) -> None:
     print(f"parity hardened: {out}, identities verify 1.0", flush=True)
 
 
+def chaos_totals(state) -> dict:
+    """The chaos planes' counters summed over the peers, and the count of
+    peers whose health latch is set."""
+    import torch
+    from dispersy_tpu_torch.metrics import _u64_total
+    out = {k: _u64_total(getattr(state.stats, k)) for k in (
+        "xshard_shed", "msgs_shed_rate", "msgs_shed_priority",
+        "msgs_corrupt_dropped", "recov_soft", "recov_backoff",
+        "recov_quarantine")}
+    out["health_flagged"] = int((state.health.view(torch.int32) != 0).sum())
+    return out
+
+
 
 # ---- phase 4: the main paths at full width -------------------------------
 
@@ -1096,6 +1261,8 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
             state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
     torch.cuda.synchronize()
+    chaos = cfg.faults.health_checks
+    shed0 = chaos_totals(state)["xshard_shed"] if chaos else 0
     times, phases = [], []
     for rnd in range(warmup, warmup + rounds):
         a = time.perf_counter()
@@ -1147,6 +1314,13 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     if cfg.malicious_enabled:
         extra = hardened_outcome(state, cfg)
         extra["spread"] = grown
+    if chaos:
+        extra = chaos_totals(state)
+        extra["xshard_shed_timed"] = extra["xshard_shed"] - shed0
+        if cfg.parallel.cross_shard_budget and not extra["xshard_shed_timed"]:
+            fail(f"{path} main path: the cross-shard cap "
+                 f"{cfg.parallel.cross_shard_budget} shed nothing in the "
+                 "timed rounds")
 
     def med(kind):
         sel = [t for t, ph in zip(times, phases) if kind in (None, ph)]
@@ -1181,7 +1355,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.profiling import (POST, SEQ_TEXT, bench_config,
-                                              hardened_config,
+                                              chaos_config, hardened_config,
                                               hardened_schedule,
                                               one_record_schedule,
                                               permissioned_config,
@@ -1207,12 +1381,17 @@ def main() -> int:
 
     legacy, diet = slice_config(N_PEERS), bench_config(N_PEERS)
     perm, hard = permissioned_config(N_PEERS), hardened_config(N_PEERS)
+    chaos = chaos_config(N_PEERS, 8, CHAOS_BUDGET)
+    chaos_flat = chaos_config(N_PEERS, 0)
     rows = (kernel_phase(legacy, KERNEL_CHECKS, "legacy", SEED, REPS)
             + kernel_phase(diet, DIET_KERNEL_CHECKS, "diet", SEED, REPS)
             + kernel_phase(perm, PERM_KERNEL_CHECKS, "permissioned", SEED,
                            REPS)
             + kernel_phase(hard, HARD_KERNEL_CHECKS, "hardened", SEED,
-                           REPS))
+                           REPS)
+            + kernel_phase(chaos, CHAOS_KERNEL_CHECKS, "chaos", SEED, REPS)
+            + kernel_phase(chaos_flat, CHAOS_FLAT_KERNEL_CHECKS,
+                           "chaos_flat", SEED, REPS))
     print(f"kernels checked ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
     parity_phase(slice_config(PARITY_PEERS), SEED, PARITY_ROUNDS,
@@ -1225,6 +1404,18 @@ def main() -> int:
     check_hardened_parity(parity_phase(
         hard_p, SEED, HARD_PARITY_ROUNDS, hardened_schedule(PARITY_PEERS)),
         hard_p)
+    parity = chaos_totals(parity_phase(
+        chaos_config(PARITY_PEERS, 8, CHAOS_PARITY_BUDGET), SEED,
+        CHAOS_PARITY_ROUNDS, one_record_schedule(PARITY_PEERS)))
+    if not parity["xshard_shed"]:
+        fail(f"chaos parity run: the cross-shard cap never bound: {parity}")
+    print(f"parity chaos (sharded): {parity}", flush=True)
+    parity = chaos_totals(parity_phase(
+        chaos_config(PARITY_PEERS, 0), SEED, CHAOS_PARITY_ROUNDS,
+        one_record_schedule(PARITY_PEERS)))
+    if not (parity["msgs_shed_priority"] or parity["msgs_shed_rate"]):
+        fail(f"chaos parity run (unsharded): nothing shed: {parity}")
+    print(f"parity chaos (unsharded): {parity}", flush=True)
     one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
@@ -1244,7 +1435,11 @@ def main() -> int:
             hard, "hardened", HARD_PATH, SEED, WARMUP, ROUNDS,
             hardened_schedule(N_PEERS),
             (hard.n_trackers, 4, SEQ_TEXT, hard.n_trackers + 1000),
-            spread=lambda st: int((st.store_meta == SEQ_TEXT).sum()))}
+            spread=lambda st: int((st.store_meta == SEQ_TEXT).sum())),
+        "chaos": main_phase(chaos, "chaos", CHAOS_PATH, SEED, WARMUP,
+                            ROUNDS, one, (64, 2, 1, 64)),
+        "chaos_flat": main_phase(chaos_flat, "chaos_flat", CHAOS_FLAT_PATH,
+                                 SEED, WARMUP, ROUNDS, one, (64, 2, 1, 64))}
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

@@ -14,12 +14,16 @@ their defaults (:func:`check_slice`) except the permission engine: the
 Timeline (authorize / revoke with delegation chains, DynamicResolution
 flips, undo-own and undo-other, destroy, and the retroactive re-walk
 after a revoke) on the legacy ring, LastSync keep-last-k, and per-meta
-priorities and DESC sync; and the hardened intake: double-sign
+priorities and DESC sync; the hardened intake: double-sign
 conviction with malicious-proof gossip (a bounded blacklist, the
 eyewitness's own proof record, convicted members ejected from the
 candidate table), the identity gate and sequence-numbered metas taken
-strictly in order.  Any other config raises ``NotImplementedError``
-before a round starts.  The store is the legacy
+strictly in order; and the chaos planes: the fault model (the
+Gilbert–Elliott channel, partitions, duplication, corruption, flooders,
+the health sentinels), the recovery pass, overload's token buckets and
+priority admission, and the parallel plane (the shard-local ragged
+exchange with its capped push buckets, :func:`_deliver`).  Any other
+config raises ``NotImplementedError`` before a round starts.  The store is the legacy
 ring (merged every round) or the byte-diet store (``store.staging > 0``,
 :mod:`storediet`): arrivals land in a staging buffer, the Bloom claim
 is a persistent digest salted with an epoch, and the sync exchange and
@@ -28,7 +32,8 @@ under ``store.cohorts > 1``.  The JAX package chooses a round's phase
 with a ``lax.cond`` on the round counter; here :func:`step` reads the
 round index to the host once per round instead.  The Timeline's retro
 pass is the JAX package's other ``lax.cond``: here its trigger is read
-to the host, once per round.  The hot ops go through
+to the host, once per round, and so is the recovery pass's (a store
+repair or a quarantine wipe anywhere).  The hot ops go through
 the wrappers of :mod:`ops` — plain PyTorch for a CPU state, the
 hand-written kernels for a CUDA state.
 
@@ -56,15 +61,22 @@ from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
                                        PERM_UNDO, PUNCTURE_BYTES,
                                        PUNCTURE_REQUEST_BYTES, RECORD_BYTES,
                                        CommunityConfig, user_perm_mask)
+from dispersy_tpu_torch.faults import (HEALTH_BLOOM_SAT,
+                                       HEALTH_COUNTER_WRAP,
+                                       HEALTH_INBOX_DROP,
+                                       HEALTH_STORE_INVARIANT)
 from dispersy_tpu_torch.ops import bloom
 from dispersy_tpu_torch.ops import candidates as cand
-from dispersy_tpu_torch.ops import inbox, intake, rng
+from dispersy_tpu_torch.ops import faults as flt
+from dispersy_tpu_torch.ops import inbox, intake
+from dispersy_tpu_torch.ops import overload as ovl
+from dispersy_tpu_torch.ops import recovery as rcv
+from dispersy_tpu_torch.ops import rng
 from dispersy_tpu_torch.ops import store as st
 from dispersy_tpu_torch.ops import timeline as tl
 from dispersy_tpu_torch.ops.hashing import record_hash
-from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
-                                       ParallelConfig, RecoveryConfig,
-                                       TelemetryConfig, TraceConfig)
+from dispersy_tpu_torch.planes import (NUM_HEALTH_BITS, TelemetryConfig,
+                                       TraceConfig)
 from dispersy_tpu_torch.state import FLAG_UNDONE, NEVER, PeerState
 from dispersy_tpu_torch.u32 import (MASK, bits, cast, narrow, narrow16,
                                     unbits, wide, zeros)
@@ -78,6 +90,11 @@ _LOSS_SYNC = 4 << 16
 _LOSS_FORWARD = 5 << 16
 _TRACKER_SALT = 1 << 15
 _TRACKER_INTRO_SALT = 1 << 20
+# The chaos harness: flood sends draw loss from their own block;
+# corruption and duplication draw one sub-block per delivery channel.
+_LOSS_FLOOD = 16 << 16
+_FAULT_SYNC = 0 << 16
+_FAULT_PUSH = 1 << 16
 
 # The round's counters that the slice writes; the rest pass through.
 _COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
@@ -86,6 +103,9 @@ _COUNTERS = ("walk_success", "walk_fail", "msgs_stored", "msgs_dropped",
 # ... the Timeline's and the blacklist's (zero-width leaves without them).
 _TIMELINE_COUNTERS = ("auth_unwound", "msgs_retro")
 _MALICIOUS_COUNTERS = ("conflicts", "convictions_rx")
+# ... and the chaos planes'.
+_OVERLOAD_COUNTERS = ("msgs_shed_rate", "msgs_shed_priority")
+_RECOVERY_COUNTERS = ("recov_soft", "recov_backoff", "recov_quarantine")
 
 
 def check_slice(cfg: CommunityConfig) -> None:
@@ -93,16 +113,13 @@ def check_slice(cfg: CommunityConfig) -> None:
     is off the ported slice (the legacy or byte-diet store, every plane
     and protocol feature flag at its default but the Timeline, LastSync
     history, meta priorities and DESC sync, the identity gate,
-    sequence-numbered metas and double-sign conviction with its gossip;
-    public NAT)."""
+    sequence-numbered metas and double-sign conviction with its gossip,
+    and the fault, recovery, overload and parallel planes; public
+    NAT)."""
     off = [
         ("sync_enabled", cfg.store_diet and not cfg.sync_enabled),
-        ("faults", cfg.faults != FaultModel()),
         ("telemetry", cfg.telemetry != TelemetryConfig()),
         ("trace", cfg.trace != TraceConfig()),
-        ("recovery", cfg.recovery != RecoveryConfig()),
-        ("overload", cfg.overload != OverloadConfig()),
-        ("parallel", cfg.parallel != ParallelConfig()),
         ("communities", bool(cfg.communities)),
         ("delay_inbox", cfg.delay_inbox > 0),
         ("proof_requests", cfg.proof_requests),
@@ -120,8 +137,38 @@ def check_slice(cfg: CommunityConfig) -> None:
                 "legacy-store and byte-diet rounds with every optional "
                 "plane and feature flag at its default but the Timeline, "
                 "LastSync history, meta priorities, DESC sync, the identity "
-                "gate, sequence numbers and double-sign conviction; the "
-                "diet needs sync_enabled)")
+                "gate, sequence numbers, double-sign conviction and the "
+                "fault, recovery, overload and parallel planes; the diet "
+                "needs sync_enabled)")
+
+
+class _EffFaults(NamedTuple):
+    """The round's fault-channel knobs: each ``*_on`` gate and value from
+    the static config (the fleet's traced per-replica values are not
+    ported)."""
+    packet_loss_on: bool
+    packet_loss: float
+    ge_on: bool
+    ge_p_bad: float
+    ge_p_good: float
+    ge_loss_good: float
+    ge_loss_bad: float
+    dup_on: bool
+    dup_rate: float
+    corrupt_on: bool
+    corrupt_rate: float
+
+
+def effective_faults(cfg: CommunityConfig) -> _EffFaults:
+    """The static path of the JAX package's ``effective_faults``: the one
+    place where the fleet's traced per-replica values would enter."""
+    fm = cfg.faults
+    return _EffFaults(
+        packet_loss_on=cfg.packet_loss > 0.0, packet_loss=cfg.packet_loss,
+        ge_on=fm.ge_enabled, ge_p_bad=fm.ge_p_bad, ge_p_good=fm.ge_p_good,
+        ge_loss_good=fm.ge_loss_good, ge_loss_bad=fm.ge_loss_bad,
+        dup_on=fm.dup_rate > 0.0, dup_rate=fm.dup_rate,
+        corrupt_on=fm.corrupt_rate > 0.0, corrupt_rate=fm.corrupt_rate)
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -140,17 +187,89 @@ def _bcast_edges(col: torch.Tensor, n: int, f: int, c: int) -> torch.Tensor:
     return unbits(b.contiguous(), col.dtype)
 
 
-def _lost(cfg: CommunityConfig, seed, rnd, edge_peer, salt_base: int,
+def _lost(kn: _EffFaults, ge_bad, seed, rnd, edge_peer, salt_base: int,
           salt) -> torch.Tensor:
-    """Per-packet Bernoulli loss (the base i.i.d. channel)."""
+    """Per-packet loss: the base i.i.d. Bernoulli draw ORed with the
+    Gilbert–Elliott state-dependent one of ``edge_peer``'s channel (the
+    sender's on sends, the receiver's on pickups), from independent
+    counter streams."""
+    dev = seed.device
     salt = salt if isinstance(salt, torch.Tensor) else torch.tensor(
-        salt, device=seed.device)
-    if cfg.packet_loss > 0.0:
+        salt, device=dev)
+    out = None
+    if kn.packet_loss_on:
         u = rng.rand_uniform(seed, rnd, edge_peer, rng.P_LOSS,
                              salt + salt_base)
-        return u < _f32(cfg.packet_loss, seed.device)
-    shape = torch.broadcast_shapes(tuple(edge_peer.shape), tuple(salt.shape))
-    return torch.zeros(shape, dtype=torch.bool, device=seed.device)
+        out = u < _f32(kn.packet_loss, dev)
+    if kn.ge_on:
+        p = torch.where(ge_bad[edge_peer], _f32(kn.ge_loss_bad, dev),
+                        _f32(kn.ge_loss_good, dev))
+        g = rng.rand_uniform(seed, rnd, edge_peer, rng.P_GE_LOSS,
+                             salt + salt_base) < p
+        out = g if out is None else out | g
+    if out is None:
+        shape = torch.broadcast_shapes(tuple(edge_peer.shape),
+                                       tuple(salt.shape))
+        return torch.zeros(shape, dtype=torch.bool, device=dev)
+    return out
+
+
+def _deliver(cfg: CommunityConfig, dst, cols, valid, n_peers: int,
+             inbox_size: int, cls=None, need_receipts: bool = True,
+             capped: bool = False):
+    """Route one full-population delivery: :func:`inbox.deliver` when the
+    parallel plane is off, the shard-local ragged exchange
+    (:func:`inbox.deliver_ragged`) when ``parallel.shards > 1``.  Only
+    the ``capped`` channel (the push blast, whose edge count the senders
+    choose) rides ``cross_shard_budget``; the others take the exact
+    exchange.  Returns ``(Delivery, shed)``, ``shed`` the bool[E]
+    sender-side overflow (None unless the cap is armed)."""
+    pp = cfg.parallel
+    if pp.shards <= 1:
+        return inbox.deliver(dst, cols, valid, n_peers, inbox_size,
+                             cls), None
+    budget = pp.cross_shard_budget if capped else 0
+    rd = inbox.deliver_ragged(dst, cols, valid, n_peers, inbox_size,
+                              pp.shards, budget, cls, need_receipts)
+    return rd.delivery, (rd.shed if budget > 0 else None)
+
+
+def _blank_tab(tab: cand.CandTable, m: torch.Tensor) -> cand.CandTable:
+    """``tab`` with the slots (or rows, for a [N, 1] mask) of ``m``
+    emptied."""
+    never = _f32(NEVER, m.device)
+    return cand.CandTable(
+        peer=torch.where(m, NO_PEER, tab.peer),
+        last_walk=torch.where(m, never, tab.last_walk),
+        last_stumble=torch.where(m, never, tab.last_stumble),
+        last_intro=torch.where(m, never, tab.last_intro))
+
+
+def _wipe_store_cols(m1: torch.Tensor, stc: st.StoreCols) -> st.StoreCols:
+    return st.StoreCols(*(_fill(m1, c, f) for c, f in zip(stc, _STORE_FILLS)))
+
+
+def _rebirth_wipe(mask, tab, stc, fwd, auth, mal, global_time, session,
+                  wipe_store: bool = True):
+    """The wiped-disk rebirth of the masked peers, shared by churn and the
+    quarantine escalation: empty candidate table, store (unless the
+    caller wiped it already), forward buffer, auth table and convictions;
+    the clock back to 1 and the session bumped."""
+    m1 = mask[:, None]
+    tab = _blank_tab(tab, m1)
+    if wipe_store:
+        stc = _wipe_store_cols(m1, stc)
+    fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
+    # The auth table is folded from the (wiped) store: it wipes too.
+    auth = tl.AuthTable(
+        member=_fill(m1, auth.member, EMPTY_U32),
+        mask=_fill(m1, auth.mask, 0), gt=_fill(m1, auth.gt, 0),
+        rev=auth.rev & ~m1, issuer=_fill(m1, auth.issuer, EMPTY_U32))
+    # Convictions live in the process's memory: they die with it.
+    mal = _fill(m1, mal, EMPTY_U32)
+    global_time = torch.where(mask, 1, global_time)
+    session = session + mask.to(torch.int64)
+    return tab, stc, fwd, auth, mal, global_time, session
 
 
 def _fold_gt(own, seen, seen_valid, rng_range: int) -> torch.Tensor:
@@ -555,6 +674,25 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     gated = tline or bool(cfg.seq_meta_mask) or cfg.identity_required
     if gated or mal_on:
         acc["msgs_rejected"] = z64.clone()
+    # The chaos planes: every branch below is gated on a static knob, so
+    # a config with the planes at their defaults runs the round above.
+    fm, rc, ov, pp = cfg.faults, cfg.recovery, cfg.overload, cfg.parallel
+    kn = effective_faults(cfg)
+    if kn.corrupt_on or fm.flood_enabled:
+        acc["msgs_corrupt_dropped"] = z64.clone()
+    if ov.enabled:
+        acc.update({name: z64.clone() for name in _OVERLOAD_COUNTERS})
+    if pp.shards > 1 and pp.cross_shard_budget > 0:
+        acc["xshard_shed"] = z64.clone()
+    if rc.enabled:
+        acc.update({name: z64.clone() for name in _RECOVERY_COUNTERS})
+        acc["recov_cleared"] = torch.zeros((n, NUM_HEALTH_BITS),
+                                           dtype=torch.int64, device=dev)
+    bucket_new = state.bucket
+    # Each peer's Gilbert–Elliott channel moves once a round; this
+    # round's loss draws condition on the new state.
+    ge_bad = (flt.ge_advance(state.ge_bad, seed, rnd, idx, kn.ge_p_bad,
+                             kn.ge_p_good) if kn.ge_on else state.ge_bad)
     bup, bdown = z64.clone(), z64.clone()
     rng_range = cfg.acceptable_global_time_range
     # Byte-diet store (storediet.py): arrivals land in the staging buffer,
@@ -598,22 +736,18 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     loaded = state.loaded
     auth = _auth(state)
     mal = state.mal_member              # u32 [N, k_malicious] convictions
+    health = state.health
+    backoff, repair_round = state.backoff, state.repair_round
+    quar_until = state.quar_until
     if cfg.churn_rate > 0.0:
         reborn = state.alive & ~state.is_tracker & (
             rng.rand_uniform(seed, rnd, idx, rng.P_CHURN)
             < _f32(cfg.churn_rate, dev))
         m1 = reborn[:, None]
-        never = _f32(NEVER, dev)
-        tab = cand.CandTable(
-            peer=torch.where(m1, NO_PEER, tab.peer),
-            last_walk=torch.where(m1, never, tab.last_walk),
-            last_stumble=torch.where(m1, never, tab.last_stumble),
-            last_intro=torch.where(m1, never, tab.last_intro))
-        stc = st.StoreCols(*(_fill(m1, c, f)
-                             for c, f in zip(stc, _STORE_FILLS)))
+        tab, stc, fwd, auth, mal, global_time, session = _rebirth_wipe(
+            reborn, tab, stc, fwd, auth, mal, global_time, session)
         if diet:
-            sta = st.StoreCols(*(_fill(m1, c, f)
-                                 for c, f in zip(sta, _STORE_FILLS)))
+            sta = _wipe_store_cols(m1, sta)
             dig = _fill(m1, dig, 0)
         if stagger:
             # The epoch leaf wipes with the store and is re-derived from
@@ -621,16 +755,15 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             epoch = narrow(torch.where(
                 reborn, sdiet.epoch_of_cohort(cfg, rnd_h, wide(state.cohort)),
                 wide(epoch)))
-        fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
-        # The auth table is folded from the (wiped) store: it wipes too.
-        auth = tl.AuthTable(
-            member=_fill(m1, auth.member, EMPTY_U32),
-            mask=_fill(m1, auth.mask, 0), gt=_fill(m1, auth.gt, 0),
-            rev=auth.rev & ~m1, issuer=_fill(m1, auth.issuer, EMPTY_U32))
-        # Convictions live in the process's memory: they die with it.
-        mal = _fill(m1, mal, EMPTY_U32)
-        global_time = torch.where(reborn, 1, global_time)
-        session = session + reborn.to(torch.int64)
+        if fm.health_checks:
+            # A restart clears the health latch (the GE channel state is
+            # the link's and survives).
+            health = _fill(reborn, health, 0)
+        if rc.enabled:
+            # ... and the process's recovery memory; the quarantine is
+            # the overlay's decision about the peer and survives.
+            backoff = torch.where(reborn, 0, backoff).to(torch.uint8)
+            repair_round = _fill(reborn, repair_round, 0)
         loaded = torch.where(reborn, True, loaded)
     alive = state.alive
     act = alive & loaded            # participating this round
@@ -650,6 +783,13 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         walks = act & ~state.is_tracker
         if tline:
             walks = walks & ~killed
+        if rc.enabled:
+            # A backed-off peer walks one round in 2^backoff; a
+            # quarantined one sits out until its release round.
+            if rc.backoff_limit > 0:
+                walks = walks & rcv.backoff_gate(rnd, backoff)
+            if rc.quarantine_rounds > 0:
+                walks = walks & ~rcv.quarantine_active(rnd, quar_until)
         target = torch.where(walks, target, NO_PEER)
     else:
         target = torch.full((n,), NO_PEER, dtype=torch.int32, device=dev)
@@ -679,43 +819,184 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     # ---- phase 1f: push forwarding (store_update_forward's _forward) ----
     # Last round's fresh records go to `forward_fanout` distinct verified
     # candidates, one candidate set per peer per round.
-    if cfg.forward_fanout > 0:
-        f, c = cfg.forward_buffer, cfg.forward_fanout
-        fwd_targets = cand.sample_forward_targets(tab, now, cfg, seed, rnd,
-                                                  idx)
-        have_rec = (bits(fwd[0]) != -1)[:, :, None]
-        tgt_ok = (fwd_targets != NO_PEER)[:, None, :]
-        fc_salt = (torch.arange(f, device=dev)[:, None] * c
-                   + torch.arange(c, device=dev)[None, :])[None]
-        push_lost = _lost(cfg, seed, rnd, idx[:, None, None], _LOSS_FORWARD,
-                          fc_salt)
-        send_rec_ok = act[:, None]
-        if tline:
-            send_rec_ok = send_rec_ok & (~killed[:, None]
-                                         | (fwd[2] == META_DESTROY))
-        push_sent = send_rec_ok[:, :, None] & have_rec & tgt_ok
-        push_valid = push_sent & ~push_lost
-        push_dst = fwd_targets[:, None, :].expand(n, f, c).reshape(-1)
-        push = inbox.deliver(
-            push_dst.contiguous(),
-            [_bcast_edges(col, n, f, c) for col in fwd],
-            push_valid.reshape(-1).contiguous(), n, cfg.push_inbox)
-        ph_gt, ph_member, ph_meta, ph_payload, ph_aux = push.inbox
-        arrivals = arrivals | push.inbox_valid.any(dim=1)
+    if cfg.forward_fanout > 0 or fm.flood_enabled:
+        # Edge-list segments: the real push fan-out, then the flooders'
+        # junk blast.  One delivery serves both, so junk competes for the
+        # same bounded inboxes (the saturation attack).
+        e_dst, e_valid, e_junk = [], [], []
+        e_cols: list[list] = [[] for _ in range(5)]
+        if ov.enabled:
+            # Per-sender token buckets: this round's credit is spent by
+            # every attempted push or flood packet in emission order
+            # (pre-loss); attempts beyond it are shed at the sender.
+            ov_credit = ovl.bucket_refill(state.bucket, seed, rnd, idx,
+                                          ov.bucket_rate, ov.bucket_depth)
+            ov_shed, ov_att = z64.clone(), z64.clone()
+        # With flood junk in the blast the aux column rides in u32 (the
+        # JAX package's concatenation promotes a u16 aux).
+        aux_dt = torch.uint32 if fm.flood_enabled else fwd[4].dtype
+        if cfg.forward_fanout > 0:
+            f, c = cfg.forward_buffer, cfg.forward_fanout
+            fwd_targets = cand.sample_forward_targets(tab, now, cfg, seed,
+                                                      rnd, idx)
+            have_rec = (bits(fwd[0]) != -1)[:, :, None]
+            tgt_ok = (fwd_targets != NO_PEER)[:, None, :]
+            fc_salt = (torch.arange(f, device=dev)[:, None] * c
+                       + torch.arange(c, device=dev)[None, :])[None]
+            push_lost = _lost(kn, ge_bad, seed, rnd, idx[:, None, None],
+                              _LOSS_FORWARD, fc_salt)
+            send_rec_ok = act[:, None]
+            if tline:
+                send_rec_ok = send_rec_ok & (~killed[:, None]
+                                             | (fwd[2] == META_DESTROY))
+            push_sent = send_rec_ok[:, :, None] & have_rec & tgt_ok
+            push_valid = push_sent & ~push_lost
+            push_dst = fwd_targets[:, None, :].expand(n, f, c)
+            if fm.partitions:
+                push_valid = push_valid & ~flt.partition_blocked(
+                    idx[:, None, None].expand(n, f, c), push_dst,
+                    fm.partitions)
+            if ov.enabled:
+                # Rate gate: a sender's attempts in (f, c) order past its
+                # credit shed (a lost packet still spent its credit).
+                att = push_sent.reshape(n, f * c)
+                ordn = torch.cumsum(att.to(torch.int64), dim=1) - 1
+                in_budget = att & (ordn < ov_credit[:, None])
+                ov_shed = ov_shed + (att & ~in_budget).sum(dim=1)
+                ov_att = ov_att + att.sum(dim=1)
+                push_valid = push_valid & in_budget.reshape(n, f, c)
+            e_dst.append(push_dst.reshape(-1))
+            e_valid.append(push_valid.reshape(-1))
+            for e_col, col in zip(e_cols, fwd[:4] + (cast(fwd[4], aux_dt),)):
+                e_col.append(_bcast_edges(col, n, f, c))
+            e_junk.append(torch.zeros(n * f * c, dtype=torch.bool,
+                                      device=dev))
+        if fm.flood_enabled:
+            fsrc = torch.tensor(fm.flood_senders, dtype=torch.int64,
+                                device=dev)
+            fl, ff = len(fm.flood_senders), fm.flood_fanout
+            fsalt = torch.arange(ff, device=dev)[None, :]
+            victims = (t + rng.rand_u32(seed, rnd, fsrc[:, None],
+                                        rng.P_FLOOD, fsalt) % (n - t))
+
+            def junk_field(block):
+                return rng.rand_u32(seed, rnd, fsrc[:, None], rng.P_FLOOD,
+                                    fsalt + (block << 12)).reshape(-1)
+            alive_f = alive[fsrc]
+            fl_lost = _lost(kn, ge_bad, seed, rnd, fsrc[:, None], _LOSS_FLOOD,
+                            fsalt)
+            fl_valid = alive_f[:, None] & ~fl_lost
+            if fm.partitions:
+                fl_valid = fl_valid & ~flt.partition_blocked(
+                    fsrc[:, None].expand(fl, ff), victims, fm.partitions)
+            if ov.enabled:
+                # Flood blasts spend the same bucket, their ordinals
+                # after the sender's real pushes (senders are distinct).
+                att_f = alive_f[:, None].expand(fl, ff)
+                ordf = ov_att[fsrc][:, None] + fsalt
+                in_budget_f = att_f & (ordf < ov_credit[fsrc][:, None])
+                ov_shed = ov_shed.index_add(
+                    0, fsrc, (att_f & ~in_budget_f).sum(dim=1))
+                ov_att = ov_att.index_add(0, fsrc, att_f.sum(dim=1))
+                fl_valid = fl_valid & in_budget_f
+            e_dst.append(victims.reshape(-1))
+            e_valid.append(fl_valid.reshape(-1))
+            e_cols[0].append(narrow(junk_field(1)))               # gt
+            e_cols[1].append(narrow(junk_field(2)))               # member
+            e_cols[2].append((junk_field(3) & 0xFF).to(torch.uint8))
+            e_cols[3].append(narrow(junk_field(4)))               # payload
+            e_cols[4].append(narrow(junk_field(5)))               # aux
+            e_junk.append(torch.ones(fl * ff, dtype=torch.bool, device=dev))
+            # The flooder's NIC sends every blast, pre-loss.
+            bup = bup.index_add(0, fsrc, alive_f * (ff * RECORD_BYTES))
+        push_cols = [unbits(torch.cat([bits(x) for x in cl]), cl[0].dtype)
+                     for cl in e_cols]
+        if fm.flood_enabled:
+            push_cols.append(torch.cat(e_junk))
+        if ov.enabled:
+            # In-budget attempts drain the balance; the refill lands at
+            # the next round's bucket_refill.
+            bucket_new = ovl.bucket_spend(ov_credit, ov_att.clamp(min=0))
+            acc["msgs_shed_rate"] += ov_shed
+        push_cls = None
+        if ov.enabled and ov.priority_admission:
+            # Priority admission: the wire-visible meta byte classes each
+            # packet, and overflow sheds the highest classes first.
+            push_cls = ovl.admission_class(push_cols[2], cfg.n_meta,
+                                           cfg.priorities).to(torch.uint8)
+        push, px_shed = _deliver(
+            cfg, torch.cat(e_dst).to(torch.int32).contiguous(), push_cols,
+            torch.cat(e_valid).contiguous(), n, cfg.push_inbox, cls=push_cls,
+            need_receipts=False, capped=True)
+        if px_shed is not None:
+            # Edges shed by a full cross-shard bucket left the sender's
+            # NIC and died in the exchange: the sender's backpressure
+            # count, segment by segment.
+            sh = px_shed.to(torch.int64)
+            off = 0
+            if cfg.forward_fanout > 0:
+                acc["xshard_shed"] += sh[:n * f * c].reshape(
+                    n, f * c).sum(dim=1)
+                off = n * f * c
+            if fm.flood_enabled:
+                acc["xshard_shed"] = acc["xshard_shed"].index_add(
+                    0, fsrc, sh[off:off + fl * ff].reshape(fl, ff).sum(dim=1))
+        ph_gt, ph_member, ph_meta, ph_payload, ph_aux = push.inbox[:5]
+        if fm.flood_enabled:
+            # Junk never decodes, so it loads no community.
+            ph_junk = push.inbox[-1]
+            arrivals = arrivals | (push.inbox_valid & ~ph_junk).any(dim=1)
+        else:
+            arrivals = arrivals | push.inbox_valid.any(dim=1)
         ph_ok = push.inbox_valid & act[:, None]
-        acc["msgs_forwarded"] += push_valid.sum(dim=(1, 2))
-        acc["msgs_dropped"] += push.n_dropped
-        bup = bup + push_sent.sum(dim=(1, 2)) * RECORD_BYTES
+        if ov.enabled:
+            # Under the overload plane an inbox overflow is an admission
+            # decision: the receiver's priority-shed count, which feeds
+            # no health sentinel.
+            acc["msgs_shed_priority"] += push.n_dropped
+        else:
+            acc["msgs_dropped"] += push.n_dropped
+        if cfg.forward_fanout > 0:
+            acc["msgs_forwarded"] += push_valid.sum(dim=(1, 2))
+            bup = bup + push_sent.sum(dim=(1, 2)) * RECORD_BYTES
         bdown = bdown + ph_ok.sum(dim=1) * RECORD_BYTES
+        q_sz = ph_ok.shape[1]
+        if fm.flood_enabled or kn.corrupt_on:
+            # The intake's hash re-check: junk always fails it, a real
+            # record with corrupt_rate; either is dropped and counted.
+            bad = torch.zeros_like(ph_ok)
+            if fm.flood_enabled:
+                bad = bad | (ph_ok & ph_junk)
+            if kn.corrupt_on:
+                cu = rng.rand_uniform(
+                    seed, rnd, idx[:, None], rng.P_CORRUPT,
+                    torch.arange(q_sz, device=dev)[None, :] + _FAULT_PUSH)
+                bad = bad | (ph_ok & (cu < _f32(kn.corrupt_rate, dev)))
+            acc["msgs_corrupt_dropped"] += bad.sum(dim=1)
+            ph_ok = ph_ok & ~bad
+        if kn.dup_on:
+            # A clean delivered push arrives twice (the copy joins the
+            # batch's tail).
+            du = rng.rand_uniform(
+                seed, rnd, idx[:, None], rng.P_DUP,
+                torch.arange(q_sz, device=dev)[None, :] + _FAULT_PUSH)
+            ph_dup_ok = ph_ok & (du < _f32(kn.dup_rate, dev))
+            bdown = bdown + ph_dup_ok.sum(dim=1) * RECORD_BYTES
     else:
         p0 = zeros((n, 0), torch.uint32, dev)
         ph_gt = ph_member = ph_payload = ph_aux = p0
         ph_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
         ph_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+        ph_dup_ok = ph_ok
 
-    req_lost = _lost(cfg, seed, rnd, idx, _LOSS_REQUEST, 0)
+    req_lost = _lost(kn, ge_bad, seed, rnd, idx, _LOSS_REQUEST, 0)
     bup = bup + (act & (target != NO_PEER)) * req_bytes
     send_ok = act & (target != NO_PEER) & ~req_lost
+    if fm.partitions:
+        # A severed walk edge never delivers: the whole exchange dies
+        # with the request.
+        send_ok = send_ok & ~flt.partition_blocked(idx, target,
+                                                   fm.partitions)
     to_tracker = (target >= 0) & (target < t)
     # Requests carry the sender's clock as of round start.
     gt_at_send = narrow(global_time)
@@ -729,8 +1010,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                     my_bloom]
     else:
         req_cols = [idx_u32, gt_at_send]
-    req = inbox.deliver(target, req_cols, send_ok & ~to_tracker, n,
-                        cfg.request_inbox)
+    req, _ = _deliver(cfg, target, req_cols, send_ok & ~to_tracker, n,
+                      cfg.request_inbox)
     if wire_sync:
         (rq_src, rq_tlow, rq_thigh, rq_mod, rq_off, rq_gt,
          rq_bloom) = req.inbox
@@ -826,23 +1107,29 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     # only the puncture-request hop needs a second delivery:
     # responder -> introduced peer, naming the requester.
     salt_r = torch.arange(r, device=dev)[None, :]
-    pr_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_PUNCTURE_REQ, salt_r)
+    pr_lost = _lost(kn, ge_bad, seed, rnd, idx[:, None], _LOSS_PUNCTURE_REQ, salt_r)
     pr_ok_send = rq_ok & (intro != NO_PEER) & ~pr_lost
+    if fm.partitions:
+        pr_ok_send = pr_ok_send & ~flt.partition_blocked(
+            idx[:, None].expand(intro.shape), intro, fm.partitions)
     pr_dst = [intro.reshape(-1)]
     pr_target = [rq_src_i.reshape(-1)]
     pr_valid = [pr_ok_send.reshape(-1)]
     if t > 0:
         salt_rt = torch.arange(rt, device=dev)[None, :] + _TRACKER_SALT
-        tpr_lost = _lost(cfg, seed, rnd, tidx[:, None], _LOSS_PUNCTURE_REQ,
+        tpr_lost = _lost(kn, ge_bad, seed, rnd, tidx[:, None], _LOSS_PUNCTURE_REQ,
                          salt_rt)
         tpr_ok_send = tq_ok & (intro_t != NO_PEER) & ~tpr_lost
+        if fm.partitions:
+            tpr_ok_send = tpr_ok_send & ~flt.partition_blocked(
+                tidx[:, None].expand(intro_t.shape), intro_t, fm.partitions)
         pr_dst.append(intro_t.reshape(-1))
         pr_target.append(tq_src_i.reshape(-1))
         pr_valid.append(tpr_ok_send.reshape(-1))
-    punc_req = inbox.deliver(
-        torch.cat(pr_dst).to(torch.int32),
+    punc_req, _ = _deliver(
+        cfg, torch.cat(pr_dst).to(torch.int32),
         [torch.cat(pr_target).to(torch.int32).view(torch.uint32)],
-        torch.cat(pr_valid), n, cfg.request_inbox)
+        torch.cat(pr_valid), n, cfg.request_inbox, need_receipts=False)
     (pq_target,) = punc_req.inbox                             # [N, P]
     arrivals = arrivals | punc_req.inbox_valid.any(dim=1)
     pq_ok = punc_req.inbox_valid & act[:, None]
@@ -855,12 +1142,16 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     # ---- phase 4: puncture hop (C -> requester) ------------------------
     p = cfg.request_inbox
     salt_p = torch.arange(p, device=dev)[None, :]
-    pu_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_PUNCTURE, salt_p)
+    pu_lost = _lost(kn, ge_bad, seed, rnd, idx[:, None], _LOSS_PUNCTURE, salt_p)
     pu_ok_send = pq_ok & ~pu_lost
-    punc = inbox.deliver(
-        bits(pq_target).reshape(-1),
+    if fm.partitions:
+        pu_ok_send = pu_ok_send & ~flt.partition_blocked(
+            idx[:, None].expand(pq_target.shape), bits(pq_target),
+            fm.partitions)
+    punc, _ = _deliver(
+        cfg, bits(pq_target).reshape(-1),
         [_bcast_edges(idx_u32[:, None], n, 1, p)],
-        pu_ok_send.reshape(-1), n, cfg.request_inbox)
+        pu_ok_send.reshape(-1), n, cfg.request_inbox, need_receipts=False)
     (pu_from,) = punc.inbox
     arrivals = arrivals | punc.inbox_valid.any(dim=1)
     pu_ok = punc.inbox_valid & act[:, None]
@@ -883,7 +1174,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         intro_pick = torch.where(to_tracker, intro_t[tgt_t, slot_t], intro_n)
     else:
         got_raw, intro_pick = got_n, intro_n
-    resp_lost = _lost(cfg, seed, rnd, idx, _LOSS_RESPONSE, 0)
+    resp_lost = _lost(kn, ge_bad, seed, rnd, idx, _LOSS_RESPONSE, 0)
     got_resp = got_raw & ~resp_lost & act
     bdown = bdown + got_resp * INTRO_RESPONSE_BYTES
     walked = torch.where(got_resp, target, NO_PEER)
@@ -947,7 +1238,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         sy_gt, sy_member, sy_meta, sy_payload, sy_aux, sy_cand = (
             st.cohort_set(zeros((n, b), col.dtype, dev), col, a_coh, coh)
             for col in obox)
-        sync_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_SYNC,
+        sync_lost = _lost(kn, ge_bad, seed, rnd, idx[:, None], _LOSS_SYNC,
                           torch.arange(b, device=dev)[None, :])
         sy_ok = sy_cand & act[:, None] & ~sync_lost
         # Served records leave the responder pre-loss.
@@ -995,7 +1286,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                 obox[:5], (stc.gt.dtype, stc.member.dtype, stc.meta.dtype,
                            stc.payload.dtype, stc.aux.dtype)))
         obox_ok = obox[5]
-        sync_lost = _lost(cfg, seed, rnd, idx[:, None], _LOSS_SYNC,
+        sync_lost = _lost(kn, ge_bad, seed, rnd, idx[:, None], _LOSS_SYNC,
                           torch.arange(b, device=dev)[None, :])
         sy_ok = (obox_ok[tgt, slot_n] & (req.edge_slot >= 0)[:, None]
                  & act[:, None] & ~sync_lost)
@@ -1006,19 +1297,40 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         sy_gt = sy_member = sy_payload = sy_aux = s0
         sy_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
         sy_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+    sy_dup_ok = sy_ok
+    if sync_on and (kn.corrupt_on or kn.dup_on):
+        b_ix = torch.arange(cfg.response_budget, device=dev)[None, :]
+        if kn.corrupt_on:
+            # An in-transit bit flip: the record crossed the socket but
+            # fails the intake's hash re-check.
+            cu = rng.rand_uniform(seed, rnd, idx[:, None], rng.P_CORRUPT,
+                                  b_ix + _FAULT_SYNC)
+            sy_bad = sy_ok & (cu < _f32(kn.corrupt_rate, dev))
+            acc["msgs_corrupt_dropped"] += sy_bad.sum(dim=1)
+            sy_ok = sy_ok & ~sy_bad
+        if kn.dup_on:
+            du = rng.rand_uniform(seed, rnd, idx[:, None], rng.P_DUP,
+                                  b_ix + _FAULT_SYNC)
+            sy_dup_ok = sy_ok & (du < _f32(kn.dup_rate, dev))
+            bdown = bdown + sy_dup_ok.sum(dim=1) * RECORD_BYTES
 
     # ---- phase 5: combined intake (sync pull + push) -> store ----------
     # One batch per round, sync records first, then pushed records, in
-    # delivery order.  The batch's aux column is u32 (a u16 store aux is
-    # zero-extended, as the JAX package's concatenation promotes it).
-    def cat2(a, b_):
-        return unbits(torch.cat([bits(a), bits(b_)], dim=1), a.dtype)
+    # delivery order, then (duplication) the duplicated copies of both.
+    # The batch's aux column is u32 (a u16 store aux is zero-extended, as
+    # the JAX package's concatenation promotes it).
+    n_seg = 4 if kn.dup_on else 2
+
+    def cat(a, b_):
+        return unbits(torch.cat([bits(a), bits(b_)] * (n_seg // 2), dim=1),
+                      a.dtype)
     in_gt, in_member, in_meta, in_payload = (
-        cat2(a, b_) for a, b_ in ((sy_gt, ph_gt), (sy_member, ph_member),
-                                  (sy_meta, ph_meta),
-                                  (sy_payload, ph_payload)))
-    in_aux = cat2(cast(sy_aux, torch.uint32), cast(ph_aux, torch.uint32))
-    in_ok = torch.cat([sy_ok, ph_ok], dim=1)
+        cat(a, b_) for a, b_ in ((sy_gt, ph_gt), (sy_member, ph_member),
+                                 (sy_meta, ph_meta),
+                                 (sy_payload, ph_payload)))
+    in_aux = cat(cast(sy_aux, torch.uint32), cast(ph_aux, torch.uint32))
+    in_ok = torch.cat([sy_ok, ph_ok]
+                      + ([sy_dup_ok, ph_dup_ok] if kn.dup_on else []), dim=1)
     bb = in_gt.shape[1]
     fb = cfg.forward_buffer
     if bb > 0:
@@ -1240,16 +1552,41 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         # no provably malicious peer.
         bad = (tab.peer != NO_PEER) & (
             tab.peer[:, :, None] == bits(mal)[:, None, :]).any(-1)
-        never = _f32(NEVER, dev)
-        tab = cand.CandTable(
-            peer=torch.where(bad, NO_PEER, tab.peer),
-            last_walk=torch.where(bad, never, tab.last_walk),
-            last_stumble=torch.where(bad, never, tab.last_stumble),
-            last_intro=torch.where(bad, never, tab.last_intro))
+        tab = _blank_tab(tab, bad)
     if cfg.auto_load:
         # Any community packet that reached an unloaded peer loads its
         # instance for the next round.
         loaded = loaded | (arrivals & alive)
+    if fm.health_checks:
+        # The health sentinels latch into `health`: a byte counter that
+        # wrapped, a broken ring or staging prefix, this round's drops at
+        # the limit (the overload and cross-shard sheds are not drops),
+        # a claimed Bloom filter 7/8 full.
+        old_up = wide(state.stats.bytes_up)
+        old_down = wide(state.stats.bytes_down)
+        wrapped = ((((old_up + bup) & MASK) < old_up)
+                   | (((old_down + bdown) & MASK) < old_down))
+        broken = flt.store_invariant_violated(stc.gt, stc.member)
+        if diet and cfg.store.staging >= 2:
+            hole = bits(sta.gt) == -1
+            broken = broken | (hole[:, :-1] & ~hole[:, 1:]).any(dim=1)
+        drop_delta = (acc["requests_dropped"] + acc["msgs_dropped"]) & MASK
+        hb = (torch.where(wrapped, HEALTH_COUNTER_WRAP, 0)
+              | torch.where(broken, HEALTH_STORE_INVARIANT, 0)
+              | torch.where(drop_delta >= fm.health_drop_limit,
+                            HEALTH_INBOX_DROP, 0))
+        if cfg.sync_enabled:
+            fill = flt.popcount_u32(dig if diet else my_bloom).sum(dim=1)
+            hb = hb | torch.where(fill * 8 >= cfg.bloom_bits * 7,
+                                  HEALTH_BLOOM_SAT, 0)
+        health_pre = wide(health)
+        health = health_pre | hb
+    if rc.enabled:
+        (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
+         backoff, repair_round, quar_until) = _recovery_pass(
+            cfg, acc, seed, rnd, idx, health_pre, hb, tab, stc, sta, dig,
+            fwd, auth, mal, global_time, session, backoff, repair_round,
+            quar_until)
     acc["bytes_up"] += bup
     acc["bytes_down"] += bdown
     diet_leaves = {} if not diet else {
@@ -1259,6 +1596,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     return state.replace(
         loaded=loaded, session=narrow(session),
         global_time=narrow(global_time),
+        health=narrow(wide(health)), ge_bad=ge_bad, backoff=backoff,
+        quar_until=quar_until, repair_round=repair_round, bucket=bucket_new,
         cand_peer=tab.peer.to(torch.int32),
         cand_last_walk=_cand_quant(tab.last_walk, cfg),
         cand_last_stumble=_cand_quant(tab.last_stumble, cfg),
@@ -1274,6 +1613,84 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         time=now + _f32(cfg.walk_interval, dev),
         round_index=narrow(rnd + 1),
     )
+
+
+def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
+                   prev: torch.Tensor, hb: torch.Tensor, tab, stc, sta, dig,
+                   fwd, auth, mal, global_time, session, backoff,
+                   repair_round, quar_until):
+    """The recovery plane's staged repair of the latched sentinels.  Bits
+    latched in an earlier round (``prev``) are acted on and cleared;
+    this round's (``hb``) stay visible.  A soft repair re-sorts a broken
+    ring and flushes the candidate table of a peer flagged for drops
+    (bumping its walk backoff); a re-latch within
+    ``requarantine_window`` rounds of the last repair escalates to a
+    quarantined wiped-disk rebirth, which neighbours honour by ejecting
+    the peer from their tables.  The store-wide repairs run only when
+    some peer needs one (the JAX package's ``lax.cond``; one host read
+    here, which also skips whichever of the two has no peer).  Returns
+    the updated leaves."""
+    rc = cfg.recovery
+    n, dev = cfg.n_peers, idx.device
+    rpost = (rnd + 1) & MASK
+    prev_on = prev != 0
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
+    rr = wide(repair_round)
+    esc = (prev_on & (rr > 0) & (((rpost - rr) & MASK)
+                                 <= rc.requarantine_window)
+           if rc.quarantine_rounds > 0 else no)
+    rep = prev_on & ~esc if rc.soft_repair else no
+    bump = no
+    rep_store = (rep & ((prev & HEALTH_STORE_INVARIANT) != 0)
+                 if rc.soft_repair else no)
+    # One host read for both store-wide steps; a step whose mask is empty
+    # anywhere is an identity and is skipped.
+    any_rep, any_esc = torch.stack([rep_store.any(), esc.any()]).tolist()
+    if any_rep:
+        stc = rcv.store_repair(stc, rep_store)
+    if any_esc:
+        em = esc[:, None]
+        stc = _wipe_store_cols(em, stc)
+        if cfg.store_diet:
+            # The staging buffer and the digest are the store's write
+            # buffer and claim view: they wipe with the ring.
+            sta = _wipe_store_cols(em, sta)
+            dig = _fill(em, dig, 0)
+    if rc.soft_repair:
+        rep_inbox = rep & ((prev & HEALTH_INBOX_DROP) != 0)
+        tab = _blank_tab(tab, rep_inbox[:, None])
+        if rc.backoff_limit > 0:
+            bump = rep_inbox & (backoff < rc.backoff_limit)
+            backoff = backoff + bump.to(torch.uint8)
+        rr = torch.where(rep, rpost, rr)
+    quar = wide(quar_until)
+    if rc.quarantine_rounds > 0:
+        tab, stc, fwd, auth, mal, global_time, session = _rebirth_wipe(
+            esc, tab, stc, fwd, auth, mal, global_time, session,
+            wipe_store=False)
+        backoff = torch.where(esc, 0, backoff).to(torch.uint8)
+        rr = torch.where(esc, 0, rr)
+        quar = torch.where(esc, (rpost + rc.quarantine_rounds) & MASK, quar)
+    cleared = torch.where(rep, prev, 0) | torch.where(esc, prev | hb, 0)
+    health = torch.where(esc, 0, torch.where(rep, hb, prev | hb))
+    if rc.backoff_limit > 0:
+        # Backoff decays on clean rounds, one draw per peer.
+        ud = rng.rand_uniform(seed, rnd, idx, rng.P_RECOVERY)
+        dec = (~(prev_on | (hb != 0)) & (backoff > 0)
+               & (ud < _f32(rc.backoff_decay, dev)))
+        backoff = backoff - dec.to(torch.uint8)
+    if rc.quarantine_rounds > 0:
+        safe = tab.peer.to(torch.int64).clamp(0, n - 1)
+        qbad = (tab.peer != NO_PEER) & rcv.quarantine_active(rpost,
+                                                             quar)[safe]
+        tab = _blank_tab(tab, qbad)
+    acc["recov_soft"] += rep
+    acc["recov_backoff"] += bump
+    acc["recov_quarantine"] += esc
+    acc["recov_cleared"] += torch.stack(
+        [(cleared >> b) & 1 for b in range(NUM_HEALTH_BITS)], dim=1)
+    return (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
+            backoff, narrow(rr), narrow(quar))
 
 
 def _identity_gate(cfg: CommunityConfig, stc: st.StoreCols,

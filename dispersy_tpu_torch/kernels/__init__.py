@@ -31,13 +31,14 @@ from dispersy_tpu_torch.exceptions import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("deliver", "bloom", "store", "compact", "stage", "timeline",
-           "remove")
+           "remove", "ragged")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # One launch count per kernel, bumped where its wrapper launches it and
 # nowhere else.
-LAUNCHES = {"deliver": 0, "bloom_build": 0, "bloom_query": 0,
+LAUNCHES = {"deliver": 0, "deliver_cls": 0, "deliver_ragged": 0,
+            "bloom_build": 0, "bloom_query": 0,
             "digest_update": 0, "store_insert": 0, "store_insert_history": 0,
             "rank_compact_many": 0, "store_stage": 0, "intake_checks": 0,
             "dup_earlier": 0, "timeline_check": 0, "timeline_check_grant": 0,
@@ -75,12 +76,12 @@ def build(ptxas_report: bool = False) -> dict:
     ``{source + ".ptxas": text}`` (registers, shared memory, spills)."""
     out_dir = BUILD / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    header = CSRC / "common.cuh"
+    headers = max(h.stat().st_mtime for h in CSRC.glob("*.cuh"))
     procs = {}
     t0 = time.perf_counter()
     for name in SOURCES:
         src, lib = CSRC / f"{name}.cu", out_dir / f"lib{name}.so"
-        newest = max(src.stat().st_mtime, header.stat().st_mtime)
+        newest = max(src.stat().st_mtime, headers)
         if (lib.exists() and lib.stat().st_mtime >= newest
                 and not ptxas_report):
             continue
@@ -159,46 +160,96 @@ def _i64s(values) -> ctypes.Array:
 _COL_DTYPES = (torch.uint32, torch.uint16, torch.uint8, torch.bool)
 
 
-# ---- K1: deliver ---------------------------------------------------------
+# ---- K1: deliver, K12: deliver_ragged -------------------------------------
 
-def deliver(dst, cols, valid, n_peers: int, inbox_size: int):
-    """Stable counting-sort delivery (csrc/deliver.cu).  Returns
-    ``(inbox, inbox_valid, n_dropped, edge_slot)``."""
+def _edges(what, dst, cols, valid, cls, n_peers, inbox_size):
+    """Check a delivery's edge list; returns (E, cls pointer, per-column
+    row bytes, column pointers)."""
     e = dst.shape[0]
-    _req(dst, "deliver.dst", (torch.int32,), (e,))
-    _req(valid, "deliver.valid", (torch.bool,), (e,))
+    _req(dst, f"{what}.dst", (torch.int32,), (e,))
+    _req(valid, f"{what}.valid", (torch.bool,), (e,))
+    if cls is not None:
+        _req(cls, f"{what}.cls", (torch.uint8,), (e,))
     if not 1 <= len(cols) <= MAX_COLS:
-        raise KernelError(f"deliver: 1..{MAX_COLS} columns, got {len(cols)}")
+        raise KernelError(f"{what}: 1..{MAX_COLS} columns, got {len(cols)}")
     for i, c in enumerate(cols):
-        _req(c, f"deliver.cols[{i}]", _COL_DTYPES)
+        _req(c, f"{what}.cols[{i}]", _COL_DTYPES)
         if c.shape[0] != e:
-            raise KernelError(f"deliver.cols[{i}]: {c.shape[0]} rows != {e}")
+            raise KernelError(f"{what}.cols[{i}]: {c.shape[0]} rows != {e}")
     if not 1 <= inbox_size <= DELIVER_MAX_INBOX:
-        raise KernelError(f"deliver: inbox_size {inbox_size} not in "
+        raise KernelError(f"{what}: inbox_size {inbox_size} not in "
                           f"[1, {DELIVER_MAX_INBOX}]")
     if e >= 2 ** 31 or n_peers * inbox_size >= 2 ** 31 or n_peers < 1:
-        raise KernelError("deliver: edge or inbox index past int32")
-    dev = dst.device
-    q = inbox_size
+        raise KernelError(f"{what}: edge or inbox index past int32")
+    row_bytes = [c.element_size() * math.prod(c.shape[1:]) for c in cols]
+    return e, (None if cls is None else cls.data_ptr()), row_bytes
+
+
+def _inboxes(cols, n_peers, q, e, dev):
     inbox = [torch.empty((n_peers, q) + tuple(c.shape[1:]), dtype=c.dtype,
                          device=dev) for c in cols]
-    inbox_valid = torch.empty((n_peers, q), dtype=torch.bool, device=dev)
-    n_dropped = torch.empty(n_peers, dtype=torch.int32, device=dev)
-    edge_slot = torch.empty(e, dtype=torch.int32, device=dev)
+    return (inbox, torch.empty((n_peers, q), dtype=torch.bool, device=dev),
+            torch.empty(n_peers, dtype=torch.int32, device=dev),
+            torch.empty(e, dtype=torch.int32, device=dev))
+
+
+def deliver(dst, cols, valid, n_peers: int, inbox_size: int, cls=None):
+    """Stable counting-sort delivery (csrc/deliver.cu); with ``cls`` (u8
+    admission classes) the order inside a destination is (class, edge).
+    Returns ``(inbox, inbox_valid, n_dropped, edge_slot)``."""
+    e, cls_ptr, row_bytes = _edges("deliver", dst, cols, valid, cls, n_peers,
+                                   inbox_size)
+    dev, q = dst.device, inbox_size
+    inbox, inbox_valid, n_dropped, edge_slot = _inboxes(cols, n_peers, q, e,
+                                                        dev)
     nb = -(-n_peers // 1024)
     scratch = torch.empty(4 * n_peers + 1 + nb + e, dtype=torch.int32,
                           device=dev)
-    row_bytes = [c.element_size() * math.prod(c.shape[1:]) for c in cols]
     src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
-    err = _fn("deliver", "dk_deliver", 14)(
-        dst.data_ptr(), valid.data_ptr(), e, n_peers, q, len(cols),
+    err = _fn("deliver", "dk_deliver", 15)(
+        dst.data_ptr(), valid.data_ptr(), cls_ptr, e, n_peers, q, len(cols),
         ctypes.addressof(src), ctypes.addressof(out),
         ctypes.addressof(nbytes), inbox_valid.data_ptr(),
         n_dropped.data_ptr(), edge_slot.data_ptr(), scratch.data_ptr(),
         _stream())
     _check(err, "deliver", "deliver")
-    LAUNCHES["deliver"] += 1
+    LAUNCHES["deliver" if cls is None else "deliver_cls"] += 1
     return inbox, inbox_valid, n_dropped, edge_slot
+
+
+def deliver_ragged(dst, cols, valid, n_peers: int, inbox_size: int,
+                   shards: int, budget: int = 0, cls=None,
+                   need_receipts: bool = True):
+    """The shard-local exchange with capped send buckets
+    (csrc/ragged.cu).  Returns ``(inbox, inbox_valid, n_dropped,
+    edge_slot, shed)``."""
+    e, cls_ptr, row_bytes = _edges("deliver_ragged", dst, cols, valid, cls,
+                                   n_peers, inbox_size)
+    if shards < 2 or n_peers % shards or budget < 0:
+        raise KernelError(f"deliver_ragged: shards {shards} must be >= 2 "
+                          f"and divide n_peers {n_peers}; budget {budget} "
+                          ">= 0")
+    if shards * n_peers >= 2 ** 31:
+        raise KernelError("deliver_ragged: shard histogram past int32")
+    dev, q = dst.device, inbox_size
+    inbox, inbox_valid, n_dropped, edge_slot = _inboxes(cols, n_peers, q, e,
+                                                        dev)
+    shed = torch.empty(e, dtype=torch.bool, device=dev)
+    keep = torch.empty(e, dtype=torch.bool, device=dev)
+    nb = -(-n_peers // 1024)
+    scratch = torch.empty(4 * n_peers + 1 + nb + e + shards * n_peers
+                          + 260 * shards * shards, dtype=torch.int32,
+                          device=dev)
+    src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
+    err = _fn("ragged", "dk_deliver_ragged", 20)(
+        dst.data_ptr(), valid.data_ptr(), cls_ptr, e, n_peers, q, shards,
+        budget, int(need_receipts), len(cols), ctypes.addressof(src),
+        ctypes.addressof(out), ctypes.addressof(nbytes),
+        inbox_valid.data_ptr(), n_dropped.data_ptr(), edge_slot.data_ptr(),
+        shed.data_ptr(), keep.data_ptr(), scratch.data_ptr(), _stream())
+    _check(err, "ragged", "deliver_ragged")
+    LAUNCHES["deliver_ragged"] += 1
+    return inbox, inbox_valid, n_dropped, edge_slot, shed
 
 
 # ---- K2: bloom build / query ---------------------------------------------

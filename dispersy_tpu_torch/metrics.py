@@ -1,7 +1,9 @@
 """Aggregate metrics (port of ``snapshot`` in ``dispersy_tpu/metrics.py``).
 
 The telemetry plane's fused row is off the slice, so every aggregate is
-reduced here from the state's leaves.
+reduced here from the state's leaves, the plane reports (health,
+overload, recovery) through the host tools of :mod:`faults`,
+:mod:`overload` and :mod:`recovery`.
 Counters are summed on the host in uint64, as the JAX package does, so
 1M-peer byte totals do not wrap.
 """
@@ -13,6 +15,9 @@ import torch
 
 from dispersy_tpu_torch.config import EMPTY_U32, NO_PEER, CommunityConfig
 from dispersy_tpu_torch.engine import killed_mask
+from dispersy_tpu_torch.faults import health_report
+from dispersy_tpu_torch.overload import shed_totals
+from dispersy_tpu_torch.recovery import action_totals, availability_of
 from dispersy_tpu_torch.state import PeerState
 
 # telemetry.U64_COUNTERS: every counter a snapshot totals, in row order.
@@ -32,9 +37,10 @@ def _u64_total(col: torch.Tensor) -> int:
 
 
 def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
-    """Aggregate overlay metrics for the slice: the JAX package's
-    snapshot keys except the plane reports (health, trace, overload,
-    recovery), whose planes are off the slice."""
+    """Aggregate overlay metrics: the JAX package's snapshot keys (its
+    legacy, telemetry-off path), the health report always, the overload
+    and recovery reports when their planes are on; the trace plane is
+    off the slice."""
     if cfg.telemetry.enabled:
         raise NotImplementedError(
             "the telemetry plane's fused snapshot is not ported yet")
@@ -53,7 +59,7 @@ def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
     store_cap = cfg.msg_capacity + cfg.store.staging
     cand_live = (state.cand_peer != NO_PEER).sum(dim=1, dtype=torch.float32)
     abm = s.accepted_by_meta.view(torch.int32).cpu().numpy().view(np.uint32)
-    return {
+    out = {
         "round": int(state.round_index.view(torch.int32).item()) & EMPTY_U32,
         "sim_time": float(state.time),
         "alive_members": int(members.sum()),
@@ -67,6 +73,15 @@ def snapshot(state: PeerState, cfg: CommunityConfig) -> dict:
         "candidate_fill": float(torch.where(
             members, cand_live / cfg.k_candidates, 0.0).mean())
         * (cfg.n_peers / float(n_members)),
+        **health_report(state, cfg),
         "accepted_by_meta": [int(x) for x in
                              abm.astype(np.uint64).sum(axis=0)],
     }
+    if cfg.overload.enabled:
+        out.update(shed_totals(s))
+        out["bucket_exhausted"] = int((state.bucket == 0).sum())
+    if cfg.recovery.enabled:
+        out.update(action_totals(s))
+        out["availability"] = availability_of(out["health_flagged"],
+                                              cfg.n_peers)
+    return out

@@ -12,9 +12,9 @@ copies because importing any module of ``dispersy_tpu`` pulls in JAX:
 - :class:`OverloadConfig` — ``dispersy_tpu/overload.py``
 - :class:`ParallelConfig` — ``dispersy_tpu/shardplane.py``
 
-Only the legacy round (every plane at its defaults) runs in the port so
-far; the copies exist so configs validate, compare and size state
-exactly as the JAX package does.
+The copies make configs validate, compare and size state exactly as the
+JAX package does; the engine runs the fault, recovery, overload and
+parallel planes, and refuses telemetry and trace (``engine.check_slice``).
 """
 
 from __future__ import annotations
@@ -256,6 +256,9 @@ class ParallelConfig:
     """Multichip knobs; all defaults = the single-device round."""
     shards: int = 0
     cross_shard_budget: int = 0
+    # The JAX package splits its Bloom scatter into row blocks to stay
+    # under XLA's 2^31 scatter-index cap; the bits are the same for every
+    # value, and the port's build has no such cap, so it reads none.
     scatter_chunks: int = 1
 
     def __post_init__(self) -> None:

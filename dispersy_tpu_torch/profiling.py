@@ -1,6 +1,7 @@
 """The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
-the permissioned and the hardened communities at that shape, the
-schedules that drive them, and the card's profile of a main path.
+the permissioned and the hardened communities and the chaos round at
+that shape, the schedules that drive them, and the card's profile of a
+main path.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -17,7 +18,9 @@ from dispersy_tpu_torch.config import (DEFAULT_PRIORITY, EMPTY_U32,
                                        META_DYNAMIC, META_IDENTITY,
                                        META_REVOKE, META_UNDO_OTHER,
                                        CommunityConfig, perm_bit)
-from dispersy_tpu_torch.planes import StoreConfig
+from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
+                                       ParallelConfig, RecoveryConfig,
+                                       StoreConfig)
 
 
 def bench_config(n_peers: int, platform: str = "tpu") -> CommunityConfig:
@@ -185,6 +188,41 @@ def hardened_config(n_peers: int) -> CommunityConfig:
         malicious_enabled=True, k_malicious=8, malicious_gossip=True)
 
 
+def chaos_config(n_peers: int, shards: int = 8,
+                 budget: int = 4096) -> CommunityConfig:
+    """The chaos round: :func:`bench_config` with the planes that the
+    JAX package's cost ledger stacks for its cumulative ``overload``
+    cell (``dispersy_tpu/costmodel.py:115-127``) -- 10% i.i.d. loss, the
+    Gilbert–Elliott channel, 2% duplication and 2% corruption, two
+    flooders blasting 4 junk packets a round, the health sentinels, the
+    recovery plane and overload's token buckets with priority admission
+    -- on the ragged cross-shard exchange of the ``mesh8`` cell
+    (``costmodel.py:78``): ``shards`` peer-axis shards, each
+    (source shard, destination shard) push bucket capped at ``budget``
+    edges a round.  ``shards=0`` is the same planes on the unsharded
+    delivery.
+
+    The ``mesh8`` cell sets no ``ParallelConfig``: the default
+    ``budget=4096`` is a value chosen so that the cap binds at 1M peers
+    and the capped exchange runs, not a deployment's setting.  At 1M it
+    sheds most push edges, and the trackers' inboxes overflow into
+    quarantine, so this config is no benchmark cell until a source or a
+    measured traffic mix fixes the budget and the trackers'
+    ``health_drop_limit``."""
+    faults = FaultModel(
+        ge_p_bad=0.05, ge_p_good=0.3, ge_loss_good=0.01, ge_loss_bad=0.5,
+        dup_rate=0.02, corrupt_rate=0.02, flood_senders=(3, 5),
+        flood_fanout=4, health_checks=True)
+    cfg = bench_config(n_peers).replace(
+        packet_loss=0.1, faults=faults,
+        recovery=RecoveryConfig(enabled=True),
+        overload=OverloadConfig(enabled=True))
+    if shards > 1:
+        cfg = cfg.replace(parallel=ParallelConfig(
+            shards=shards, cross_shard_budget=budget))
+    return cfg
+
+
 # Metas of the hardened community, and the rounds of its sequence chain.
 TEXT, SEQ_TEXT = 0, 1
 SEQ_ROUNDS = (0, 1, 2, 4, 6)
@@ -329,7 +367,8 @@ OWN_KERNEL_PREFIX = "dk_"
 
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                    seed: int = 0, top: int = 15, diet: bool = False,
-                   timeline: bool = False, hardened: bool = False) -> dict:
+                   timeline: bool = False, hardened: bool = False,
+                   chaos: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
     ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
@@ -340,14 +379,16 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     moderators' delegations included); with ``hardened``, the hardened
     round of :func:`hardened_config` driven by :func:`hardened_schedule`
     (the traced rounds 3-5 hold the round-4 equivocations and the
-    convictions and gossip they start).  Reports wall time; device busy time (the sum
+    convictions and gossip they start); with ``chaos``, the chaos round
+    of :func:`chaos_config` (8 shards, budget 4096) driven by
+    :func:`one_record_schedule`.  Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
     the share of it in the hand-written kernels; and the ``top`` entries
     by device time, both as PyTorch ops (host-side events, each charged
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
     ``python -m dispersy_tpu_torch.profiling [--diet | --timeline |
-    --hardened]`` prints it as one JSON line."""
+    --hardened | --chaos]`` prints it as one JSON line."""
     import time
 
     import torch
@@ -358,9 +399,12 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    if diet + timeline + hardened > 1:
-        raise ValueError("pick one of diet, timeline and hardened")
-    if hardened:
+    if diet + timeline + hardened + chaos > 1:
+        raise ValueError("pick one of diet, timeline, hardened and chaos")
+    if chaos:
+        cfg = chaos_config(n_peers)
+        creates = one_record_schedule(n_peers)
+    elif hardened:
         cfg = hardened_config(n_peers)
         creates = hardened_schedule(n_peers)
     elif timeline:
@@ -404,7 +448,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     busy = ms(device)
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
-        "timeline": timeline, "hardened": hardened,
+        "timeline": timeline, "hardened": hardened, "chaos": chaos,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
@@ -427,7 +471,9 @@ if __name__ == "__main__":
                        "permissioned_config")
     which.add_argument("--hardened", action="store_true",
                        help="trace the hardened round of hardened_config")
+    which.add_argument("--chaos", action="store_true",
+                       help="trace the chaos round of chaos_config")
     args = ap.parse_args()
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
-                                    hardened=args.hardened,
+                                    hardened=args.hardened, chaos=args.chaos,
                                     rounds=5 if args.timeline else 3)))

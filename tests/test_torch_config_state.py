@@ -164,3 +164,58 @@ def test_state_from_numpy_checks():
     assert isinstance(state_from_numpy(arrays, pc, device="cpu").store_gt,
                       torch.Tensor)
     assert arrays["store_gt"].dtype == np.uint32
+
+
+# ---- the chaos planes on the slice ---------------------------------------------
+
+CHAOS_PLANES = {
+    "faults": dict(faults=dict(ge_p_bad=0.05, ge_p_good=0.3,
+                               ge_loss_bad=0.5, partitions=(((2, 9),
+                                                             (20, 30)),),
+                               dup_rate=0.02, corrupt_rate=0.02,
+                               flood_senders=(3, 5), flood_fanout=4,
+                               health_checks=True)),
+    "recovery": dict(faults=dict(health_checks=True),
+                     recovery=dict(enabled=True)),
+    "overload": dict(overload=dict(enabled=True)),
+    "parallel": dict(parallel=dict(shards=8, cross_shard_budget=4,
+                                   scatter_chunks=2)),
+}
+
+
+@pytest.mark.parametrize("plane", sorted(CHAOS_PLANES))
+def test_check_slice_accepts_the_chaos_planes(plane):
+    from dispersy_tpu_torch import engine
+    _, pc = build(dict(CONFIGS[1], **CHAOS_PLANES[plane]))
+    engine.check_slice(pc)
+
+
+@pytest.mark.parametrize("field,kw", [
+    ("telemetry", dict(telemetry=planes.TelemetryConfig(enabled=True))),
+    ("trace", dict(trace=planes.TraceConfig(enabled=True))),
+    ("communities", dict(communities=((60, 1), (66, 1)))),
+    ("delay_inbox", dict(delay_inbox=3, timeline_enabled=True, n_meta=4,
+                         protected_meta_mask=0b10)),
+])
+def test_check_slice_still_refuses(field, kw):
+    from dispersy_tpu_torch import engine
+    pc = pconfig.CommunityConfig(**dict(CONFIGS[1], **kw))
+    with pytest.raises(NotImplementedError, match=field):
+        engine.check_slice(pc)
+
+
+def test_chaos_config_init_state_equal():
+    """``profiling.chaos_config`` sizes every plane leaf as the JAX
+    package does for the same planes."""
+    pc = profiling.chaos_config(256)
+    kw = {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc)}
+    for name, (jcls, _) in dict(
+            PLANE_ARGS, trace=(traceplane.TraceConfig, None)).items():
+        kw[name] = jcls(**dataclasses.asdict(kw[name]))
+    jc = jconfig.CommunityConfig(**kw)
+    want = jstate.init_state(jc, jax.random.PRNGKey(5))
+    got = init_state(pc, 5, device="cpu")
+    assert_states_equal(got, want, "init_state")
+    for leaf in ("health", "ge_bad", "backoff", "bucket"):
+        assert getattr(got, leaf).shape == (256,), leaf
+    assert got.stats.xshard_shed.shape == (256,)

@@ -27,8 +27,8 @@ from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch import profiling
 from dispersy_tpu_torch.bridge import first_difference
 from dispersy_tpu_torch.config import META_DYNAMIC
-from dispersy_tpu_torch.planes import (OverloadConfig, StoreConfig,
-                                       TelemetryConfig)
+from dispersy_tpu_torch.planes import (StoreConfig, TelemetryConfig,
+                                       TraceConfig)
 from dispersy_tpu_torch.storediet import phase_of
 
 BASE = dict(n_peers=128, n_trackers=2, k_candidates=8, msg_capacity=32)
@@ -166,7 +166,7 @@ def test_diet_off_slice_raises(field):
 @pytest.mark.parametrize("field,value", [
     ("double_meta_mask", 1),
     ("telemetry", TelemetryConfig(enabled=True)),
-    ("overload", OverloadConfig(enabled=True)),
+    ("trace", TraceConfig(enabled=True)),
     ("p_symmetric", 0.25),
 ])
 def test_off_slice_config_raises(field, value):
