@@ -10,14 +10,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``build/`` (one ``nvcc`` per source, in parallel);
 2. kernels: every kernel of the five paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
-   legacy ring's shapes, the byte-diet round's (u16 aux columns, per-row
+   legacy ring's shapes (K1 at each of its call shapes, and the delivery
+   core's corners for K1, K1 with classes and K12), the byte-diet round's (u16 aux columns, per-row
    Bloom salts, the cohort block, the staging buffer), the permissioned
    round's (the [N, 8] grant tables, the store replays in each K9 mode,
    store_remove, K3 with a LastSync history), then the hardened round's
    (the store probes in each K11 mode, with planted hits), then the
-   chaos round's (K12 on the capped push blast with admission classes
-   and on the exact request channel with receipts, where it must also
-   equal K1; K1 with classes on the unsharded push blast) -- held bit
+   chaos round's (K12 on the capped push blast with admission classes,
+   on the exact request channel with receipts, where it must also equal
+   K1, and on the exact puncture channels; K1 with classes on the
+   unsharded push blast) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events beside the plain version, the bytes bound and, where one
    PyTorch call does the same work, that call;
@@ -214,46 +216,63 @@ def timed_entry(name, route, source, replaces, got, want, kernel_fn,
     return row
 
 
-def check_deliver(x: Inputs, reps: int) -> list:
-    """K1 at its call shapes: the push blast (E = N·F·C, five columns,
-    Q = push_inbox) is timed; the request (seven columns with the [E, W]
-    bloom), the tracker call (N = T, Q = tracker_inbox, so groups far
-    above 32 take the block-select path) and the puncture hops (E = N·R,
-    one column, Q = request_inbox) must agree too."""
+def k1_row(x: Inputs, name, dst, valid, cols, n_dst, q, got, want, reps,
+           cls=None, kernel="deliver") -> dict:
+    """A K1 kernels-JSON row: ``got`` held against ``want``, then K1, its
+    plain version and ``torch.sort`` of the packed (destination, class,
+    position) key timed on the same edges.  The bound counts dst and
+    valid (and the class) of every edge, the row of every landed edge,
+    the [N, Q] inboxes and their mask, the drops and the receipts."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import inbox
+    e = dst.shape[0]
+    kept = int((got[-1] >= 0).sum())
+    row_b = sum(c[:1].numel() * c.element_size() for c in cols)
+    moved = ((5 if cls is None else 6) * e + kept * row_b
+             + n_dst * q * (row_b + 1) + 4 * n_dst + 4 * e)
+    ok = valid & (dst >= 0) & (dst < n_dst)
+    key = torch.where(ok, dst.long(), n_dst) * 256
+    if cls is not None:
+        key = key + cls.long()
+    key = key * e + torch.arange(e, device=x.dev)
+    return timed_entry(
+        name, "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
+        "dispersy_tpu/ops/inbox.py:79", got, want,
+        lambda: kernels.deliver(dst, cols, valid, n_dst, q, cls),
+        lambda: inbox.deliver_plain(dst, cols, valid, n_dst, q, cls), moved,
+        reps, library_fn=lambda: torch.sort(key), kernel=kernel)
+
+
+def check_deliver(x: Inputs, reps: int) -> list:
+    """K1 at each of its call shapes in the legacy round, each timed: the
+    push blast (E = N·F·C, five columns, Q = push_inbox), the request
+    (seven columns with the [E, W] bloom), the tracker call (N = T, Q =
+    tracker_inbox: groups far above 32, the longest runs) and the
+    puncture hops (E = N·R, one column, Q = request_inbox)."""
+    torch = x.torch
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
 
-    def case(*args, **kw):
-        return deliver_case(x, *args, **kw)
+    def case(name, e, n_dst, q, cols, p, lo=-1):
+        dst, valid, got, want = deliver_case(x, e, n_dst, q, cols, p, lo)
+        return k1_row(x, name, dst, valid, cols, n_dst, q, got, want, reps)
 
     e = n * cfg.forward_buffer * cfg.forward_fanout
-    q = cfg.push_inbox
-    cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u32(e)]
-    dst, valid, got, want = case(e, n, q, cols, 0.9)
-    kept = int((got[-1] >= 0).sum())
-    words = cfg.bloom_words
+    rows = [case("deliver", e, n, cfg.push_inbox,
+                 [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u32(e)],
+                 0.9)]
     req = [narrow(torch.arange(n, device=x.dev))] + [
-        x.u32(n) for _ in range(5)] + [x.u32(n, words)]
-    _, _, rg, rw = case(n, n, cfg.request_inbox, req, 0.9)
+        x.u32(n) for _ in range(5)] + [x.u32(n, cfg.bloom_words)]
+    rows.append(case("deliver_request_bloom", n, n, cfg.request_inbox, req,
+                     0.9))
     trk = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
-    _, _, tg, tw = case(n, cfg.n_trackers, cfg.tracker_inbox, trk, 0.08,
-                        lo=0)
+    rows.append(case("deliver_tracker", n, cfg.n_trackers, cfg.tracker_inbox,
+                     trk, 0.08, lo=0))
     r = cfg.request_inbox
-    _, _, pg, pw = case(n * r, n, r, [x.u32(n * r, hi=n)], 0.7)
-    row_b = 4 * 4 + 1
-    moved = 5 * e + kept * row_b + n * q * (row_b + 1) + 4 * n + 4 * e
-    ok = valid & (dst >= 0) & (dst < n)
-    key = torch.where(ok, dst.long(), n) * e + torch.arange(e, device=x.dev)
-    return [timed_entry(
-        "deliver", "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
-        "dispersy_tpu/ops/inbox.py:79", got + rg + tg + pg,
-        want + rw + tw + pw,
-        lambda: kernels.deliver(dst, cols, valid, n, q),
-        lambda: inbox.deliver_plain(dst, cols, valid, n, q), moved, reps,
-        library_fn=lambda: torch.sort(key, stable=True))]
+    rows.append(case("deliver_puncture", n * r, n, r,
+                     [x.u32(n * r, hi=n)], 0.7))
+    return rows
 
 
 def deliver_case(x: Inputs, e, n_dst, q, cols, p_valid, lo=-1):
@@ -261,14 +280,79 @@ def deliver_case(x: Inputs, e, n_dst, q, cols, p_valid, lo=-1):
     kernel outputs, plain outputs)``."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import inbox
-    dst = x.torch.from_numpy(x.rs.integers(lo, n_dst + 1, size=e)
-                             .astype(x.np.int32)).to(x.dev)
+    dst = corner_dst(x, e, n_dst, lo=lo)
     valid = x.flags(p_valid, e)
     inb, inb_valid, dropped, slot = kernels.deliver(dst, cols, valid, n_dst,
                                                     q)
     want = inbox.deliver_plain(dst, cols, valid, n_dst, q)
     return (dst, valid, [*inb, inb_valid, dropped, slot],
             [*want.inbox, *want[1:]])
+
+
+def corner_dst(x: Inputs, e, n_dst, groups=(), lo=-1):
+    """i32[e] destinations in [lo, n_dst] (the ends parked), destination i
+    holding exactly ``groups[i]`` edges at random positions."""
+    np = x.np
+    k = len(groups)
+    rest = x.rs.integers(k if k else lo, n_dst + 1, size=e - sum(groups))
+    dst = np.concatenate([np.full(g, i) for i, g in enumerate(groups)]
+                         + [rest]).astype(np.int32)
+    if k:
+        dst = x.rs.permutation(dst)
+    return x.torch.from_numpy(dst).to(x.dev)
+
+
+def check_deliver_corners(x: Inputs, reps: int) -> list:
+    """The radix core's corners, untimed, each held bit for bit against
+    the plain version on the card: K1 with and without admission
+    classes, K12 exact with receipts and capped (budget 64) with classes
+    and without, over 1,000,008 destinations (not a multiple of 1024; 8
+    shards divide it) -- groups of exactly 32 and 33 edges, one hot
+    destination above 2048 edges, no edges, every edge invalid, Q = 1,
+    all classes equal, all 256 classes distinct in one group.  The
+    columns are u32, u8, u16 and bool (packed into one row per edge) and
+    [E, 3] and [E, 5] u32 (gathered straight)."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    n = 8 * 125_001
+    cases = [  # (name, E, Q, p_valid, exact groups, classes)
+        ("groups_32_33", 200_000, 32, 1.0, (32, 33), "random"),
+        ("hot_2048", 1 << 20, 16, 0.9, (100_000,), "random"),
+        ("no_edges", 0, 4, 0.5, (), "random"),
+        ("all_invalid", 1 << 20, 4, 0.0, (), "random"),
+        ("q1", 1 << 20, 1, 0.9, (), "random"),
+        ("classes_equal", 1 << 20, 4, 0.9, (40,), "equal"),
+        ("classes_distinct", 1 << 20, 4, 0.9, (256,), "distinct"),
+    ]
+    for name, e, q, p, groups, kind in cases:
+        cols = [x.u32(e), x.u8(e), x.u16(e), x.flags(0.5, e), x.u32(e, 3),
+                x.u32(e, 5)]
+        cls = x.u8(e)
+        if kind == "equal":
+            cls = torch.full_like(cls, 7)
+        dst = corner_dst(x, e, n, groups)
+        if kind == "distinct":
+            perm = x.rs.permutation(256).astype(x.np.uint8)
+            cls[(dst == 0).nonzero().flatten()] = torch.from_numpy(perm).to(
+                x.dev)
+        valid = x.flags(p, e)
+        for c in (None, cls):
+            inb, *rest = kernels.deliver(dst, cols, valid, n, q, c)
+            want = inbox.deliver_plain(dst, cols, valid, n, q, c)
+            if max_abs_err([*inb, *rest], [*want.inbox, *want[1:]]):
+                fail(f"K1 corner {name} (classes {c is not None}) "
+                     "disagrees with its plain version")
+        for budget, c, receipts in ((0, None, True), (64, cls, False),
+                                    (64, None, True)):
+            got, want = ragged_case(x, dst, valid, cols, n, q, 8, budget, c,
+                                    receipts)
+            if max_abs_err(got, want):
+                fail(f"K12 corner {name} (budget {budget}, classes "
+                     f"{c is not None}) disagrees with its plain version")
+        print(f"deliver corner {name}: E {e}, Q {q}, K1 and K12 bit-equal",
+              flush=True)
+    return []
 
 
 def check_bloom(x: Inputs, reps: int) -> list:
@@ -425,7 +509,7 @@ def check_intake(x: Inputs, reps: int) -> list:
         nbytes(*args) + 2 * n * b, reps, ops=2 * n * b * (m + b))]
 
 
-KERNEL_CHECKS = (check_deliver, check_bloom, check_store, check_compact,
+KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom, check_store, check_compact,
                  check_intake)
 
 # ---- phase 2, the byte-diet round's call shapes ------------------------------
@@ -435,27 +519,18 @@ def check_diet_deliver(x: Inputs, reps: int) -> list:
     buffer's u16 aux (timed), and on the quiet round's 2-column request
     (the staggered sync round's too)."""
     torch = x.torch
-    from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.ops import inbox
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
     e = n * cfg.forward_buffer * cfg.forward_fanout
     q = cfg.push_inbox
     cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u16(e)]
     dst, valid, got, want = deliver_case(x, e, n, q, cols, 0.9)
-    kept = int((got[-1] >= 0).sum())
     req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
     _, _, rg, rw = deliver_case(x, n, n, cfg.request_inbox, req, 0.9)
-    row_b = 4 * 3 + 1 + 2
-    moved = 5 * e + kept * row_b + n * q * (row_b + 1) + 4 * n + 4 * e
-    ok = valid & (dst >= 0) & (dst < n)
-    key = torch.where(ok, dst.long(), n) * e + torch.arange(e, device=x.dev)
-    return [timed_entry(
-        "deliver_diet_push_u16", "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
-        "dispersy_tpu/ops/inbox.py:79", got + rg, want + rw,
-        lambda: kernels.deliver(dst, cols, valid, n, q),
-        lambda: inbox.deliver_plain(dst, cols, valid, n, q), moved, reps,
-        library_fn=lambda: torch.sort(key, stable=True), kernel="deliver")]
+    if max_abs_err(rg, rw):
+        fail("K1 disagrees with its plain version on the diet request")
+    return [k1_row(x, "deliver_diet_push_u16", dst, valid, cols, n, q, got,
+                   want, reps)]
 
 
 def check_diet_bloom(x: Inputs, reps: int) -> list:
@@ -1065,14 +1140,43 @@ def ragged_case(x: Inputs, dst, valid, cols, n, q, shards, budget, cls,
             [*want.delivery.inbox, *want.delivery[1:], want.shed])
 
 
-def check_chaos_deliver(x: Inputs, reps: int) -> list:
-    """K12 at the sharded chaos round's 1M shapes: the capped push blast
-    with admission classes and no receipts (timed; its cap binds at
-    ``P_PUSH``), and the exact 2-column request channel with receipts
-    (timed), which must equal K1 on the same inputs."""
+def k12_row(x: Inputs, name, dst, valid, cols, n, q, shards, budget, cls,
+            receipts, got, want, reps) -> dict:
+    """A K12 kernels-JSON row: ``got`` held against ``want``, then K12,
+    its plain version and ``torch.sort`` of the [S, El] rows' packed
+    (destination, class, position) key timed on the same edges.  The
+    bound counts dst and valid (and the class) of every edge, the row of
+    every landed edge, the [N, Q] inboxes and their mask, the drops, the
+    receipts and the shed stream."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import inbox
+    e = dst.shape[0]
+    landed = int(got[len(cols)].sum())
+    row_b = sum(c[:1].numel() * c.element_size() for c in cols)
+    moved = ((5 if cls is None else 6) * e + landed * row_b
+             + n * q * (row_b + 1) + 4 * n + 5 * e)
+    key = row_sort_key(x, dst, valid, cls, n, shards)
+    return timed_entry(
+        name, "cuda", "dispersy_tpu_torch/csrc/ragged.cu",
+        "dispersy_tpu/ops/inbox.py:217", got, want,
+        lambda: kernels.deliver_ragged(dst, cols, valid, n, q, shards, budget,
+                                       cls, receipts),
+        lambda: inbox.deliver_ragged_plain(dst, cols, valid, n, q, shards,
+                                           budget, cls, receipts),
+        moved, reps, library_fn=lambda: torch.sort(key, dim=1),
+        kernel="deliver_ragged")
+
+
+def check_chaos_deliver(x: Inputs, reps: int) -> list:
+    """K12 at the sharded chaos round's 1M shapes, each timed: the capped
+    push blast with admission classes and no receipts (its cap binds at
+    ``P_PUSH``), the exact 2-column request channel with receipts, which
+    must equal K1 on the same inputs, and the exact puncture-request
+    (N·R + T·Rt edges) and puncture (N·R) channels, one column, no
+    receipts."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
     s, b = cfg.parallel.shards, cfg.parallel.cross_shard_budget
@@ -1084,64 +1188,43 @@ def check_chaos_deliver(x: Inputs, reps: int) -> list:
           f"{landed}, shed {shed}", flush=True)
     if not shed:
         fail("K12 push blast: the cross-shard cap never bound")
-    row_b = 4 * 4 + 1 + 1
-    moved = 6 * e + landed * row_b + n * q * (row_b + 1) + 4 * n + 5 * e
-    key = row_sort_key(x, dst, valid, cls, n, s)
-    rows = [timed_entry(
-        "deliver_ragged_push_cls", "cuda", "dispersy_tpu_torch/csrc/ragged.cu",
-        "dispersy_tpu/ops/inbox.py:217", got, want,
-        lambda: kernels.deliver_ragged(dst, cols, valid, n, q, s, b, cls,
-                                       False),
-        lambda: inbox.deliver_ragged_plain(dst, cols, valid, n, q, s, b, cls,
-                                           False), moved, reps,
-        library_fn=lambda: torch.sort(key, dim=1), kernel="deliver_ragged")]
+    rows = [k12_row(x, "deliver_ragged_push_cls", dst, valid, cols, n, q, s,
+                    b, cls, False, got, want, reps)]
     rq = cfg.request_inbox
     req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
-    rdst = torch.from_numpy(x.rs.integers(-1, n + 1, size=n)
-                            .astype(x.np.int32)).to(x.dev)
+    rdst = corner_dst(x, n, n)
     rvalid = x.flags(0.9, n)
     rgot, rwant = ragged_case(x, rdst, rvalid, req, n, rq, s, 0, None, True)
     k1 = kernels.deliver(rdst, req, rvalid, n, rq)
     if max_abs_err(rgot[:-1], [*k1[0], *k1[1:]]) or bool(rgot[-1].any()):
         fail("K12 at budget 0 differs from K1 on the request channel")
-    landed = int(rgot[len(req)].sum())
-    moved = 5 * n + landed * 8 + n * rq * 9 + 4 * n + 5 * n
-    rkey = row_sort_key(x, rdst, rvalid, None, n, s)
-    rows.append(timed_entry(
-        "deliver_ragged_request", "cuda", "dispersy_tpu_torch/csrc/ragged.cu",
-        "dispersy_tpu/ops/inbox.py:217", rgot, rwant,
-        lambda: kernels.deliver_ragged(rdst, req, rvalid, n, rq, s, 0, None,
-                                       True),
-        lambda: inbox.deliver_ragged_plain(rdst, req, rvalid, n, rq, s, 0,
-                                           None, True), moved, reps,
-        library_fn=lambda: torch.sort(rkey, dim=1), kernel="deliver_ragged"))
+    rows.append(k12_row(x, "deliver_ragged_request", rdst, rvalid, req, n,
+                        rq, s, 0, None, True, rgot, rwant, reps))
+    t, rt = cfg.n_trackers, cfg.tracker_inbox
+    for name, ep in (("deliver_ragged_puncture_request", n * rq + t * rt),
+                     ("deliver_ragged_puncture", n * rq)):
+        pcols = [x.u32(ep, hi=n)]
+        pdst, pvalid = corner_dst(x, ep, n), x.flags(0.7, ep)
+        pgot, pwant = ragged_case(x, pdst, pvalid, pcols, n, rq, s, 0, None,
+                                  False)
+        rows.append(k12_row(x, name, pdst, pvalid, pcols, n, rq, s, 0, None,
+                            False, pgot, pwant, reps))
     return rows
 
 
 def check_deliver_cls(x: Inputs, reps: int) -> list:
     """K1 with admission classes on the unsharded chaos round's push
     blast (E = N·F·C + the junk, Q = 16; timed)."""
-    torch = x.torch
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import inbox
     cfg, n = x.cfg, x.cfg.n_peers
     q = cfg.push_inbox
     e, cols, cls, dst, valid = push_blast(x)
-    out = kernels.deliver(dst, cols, valid, n, q, cls)
+    inb, *rest = kernels.deliver(dst, cols, valid, n, q, cls)
     want = inbox.deliver_plain(dst, cols, valid, n, q, cls)
-    landed = int(out[1].sum())
-    row_b = 4 * 4 + 1 + 1
-    moved = 6 * e + landed * row_b + n * q * (row_b + 1) + 4 * n + 4 * e
-    ok = valid & (dst >= 0) & (dst < n)
-    key = ((torch.where(ok, dst.long(), n) * 256 + cls.long()) * e
-           + torch.arange(e, device=x.dev))
-    return [timed_entry(
-        "deliver_cls_push", "cuda", "dispersy_tpu_torch/csrc/deliver.cu",
-        "dispersy_tpu/ops/inbox.py:79", [*out[0], *out[1:]],
-        [*want.inbox, *want[1:]],
-        lambda: kernels.deliver(dst, cols, valid, n, q, cls),
-        lambda: inbox.deliver_plain(dst, cols, valid, n, q, cls), moved,
-        reps, library_fn=lambda: torch.sort(key), kernel="deliver_cls")]
+    return [k1_row(x, "deliver_cls_push", dst, valid, cols, n, q,
+                   [*inb, *rest], [*want.inbox, *want[1:]], reps, cls=cls,
+                   kernel="deliver_cls")]
 
 
 CHAOS_KERNEL_CHECKS = (check_chaos_deliver,)

@@ -20,13 +20,13 @@
 // Design.  On one card the transpose is index arithmetic: a kept entry of
 // row r at local position l has global position r * El + l, which is its
 // edge index, so the destination merge by (destination, class, global
-// position) is K1's counting sort by destination with (class, edge
-// index) inside a group, run in place on the kept edges (deliver.cuh).
-// What K12 adds is the bucket cap.  An entry's rank in its bucket
-// (r, h) is a count in (destination, class, position) order, so the
-// kept set of a bucket is every entry below its B-th (0-based) entry.
-// That boundary entry is found by narrowing one key field at a time,
-// all counts:
+// position) is K1's stable radix sort by destination with (class, edge
+// index) inside a group, run in place on the kept edges, and its landing
+// (deliver.cuh).  What K12 adds is the bucket cap.  An entry's rank in
+// its bucket (r, h) is a count in (destination, class, position) order,
+// so the kept set of a bucket is every entry below its B-th (0-based)
+// entry.  That boundary entry is found by narrowing one key field at a
+// time, all counts:
 //   1. hist   -- per (row, destination) counts, [S, N] atomics;
 //   2. dest   -- one block per bucket scans its destinations' counts;
 //                a bucket of at most B entries keeps all, otherwise the
@@ -38,7 +38,10 @@
 //                block scan over the row in edge order: l*;
 //   5. keep   -- each deliverable edge is kept when (d, c, i) sorts
 //                below its bucket's (d*, c*, l*), shed otherwise.
-// Step 6 is K1's landing on the kept edges, with receipts when asked.
+// Step 6 is K1's sort and landing on the kept edges, with receipts when
+// asked.  The exact exchange (budget 0, or a budget of at least El)
+// runs step 6 alone, its shed stream cleared by the core's histogram
+// pass.
 #include "deliver.cuh"
 
 namespace {
@@ -168,8 +171,21 @@ __global__ void rg_keep_kernel(const int32_t* dst, const bool* valid,
 
 }  // namespace
 
-// scratch: int32[4 * n + 1 + ceil(n / 1024) + e] (K1's) followed by
-// int32[s * n + 4 * s * s + 256 * s * s] (hist | bound | chist);
+// K12's own scratch: int32[s * n + 4 * s * s + 256 * s * s] (hist |
+// bound | chist), then the core's (deliver.cuh).
+inline size_t ragged_own_bytes(long long n, long long s) {
+  return dk::round_up((s * n + 4 * s * s + N_CLS * s * s) * sizeof(int32_t));
+}
+
+DK_EXPORT long long dk_deliver_ragged_scratch(long long e, long long n,
+                                              long long s, long long has_cls,
+                                              long long k,
+                                              const long long* nbytes) {
+  return static_cast<long long>(
+      ragged_own_bytes(n, s) + dk::scratch_bytes(e, n, has_cls != 0, k,
+                                                 nbytes));
+}
+
 // keep: bool[e].
 DK_EXPORT int dk_deliver_ragged(
     const int32_t* dst, const bool* valid, const uint8_t* cls, long long e,
@@ -177,20 +193,21 @@ DK_EXPORT int dk_deliver_ragged(
     long long receipts, long long k, void* const* src_cols,
     void* const* dst_cols, const long long* nbytes, bool* inbox_valid,
     int32_t* n_dropped, int32_t* edge_slot, bool* shed, bool* keep,
-    int32_t* scratch, cudaStream_t stream) {
+    void* scratch, long long scratch_size, cudaStream_t stream) {
   if (s < 2 || n % s != 0 || budget < 0) return cudaErrorInvalidValue;
+  const size_t own = ragged_own_bytes(n, s);
+  if (static_cast<size_t>(scratch_size) < own) return cudaErrorInvalidValue;
   const long long el = (e + s - 1) / s;
   const long long b = budget > 0 && budget < el ? budget : el;
-  const long long nb = dk::blocks_for(n, dk::SCAN_BLOCK);
-  int32_t* hist = scratch + 4 * n + 1 + nb + e;
+  int32_t* hist = static_cast<int32_t*>(scratch);
   int32_t* bound = hist + s * n;
   int32_t* chist = bound + 4 * s * s;
   const bool* lands = valid;
+  bool* clear = shed;
   if (b < el && e > 0) {
     const int tpb = 256, ni = static_cast<int>(n);
     const int nl = static_cast<int>(n / s), si = static_cast<int>(s);
-    cudaMemsetAsync(hist, 0, (s * n + 4 * s * s + N_CLS * s * s) *
-                                 sizeof(int32_t), stream);
+    cudaMemsetAsync(hist, 0, own, stream);
     LAUNCH(rg_hist_kernel, dk::blocks_for(e, tpb), tpb, 0, stream)(
         dst, valid, e, el, ni, hist);
     LAUNCH(rg_dest_kernel, si * si, RG_BLOCK, 0, stream)(
@@ -202,12 +219,14 @@ DK_EXPORT int dk_deliver_ragged(
     LAUNCH(rg_keep_kernel, dk::blocks_for(e, tpb), tpb, 0, stream)(
         dst, valid, cls, e, el, ni, nl, si, bound, keep, shed);
     lands = keep;
-  } else if (e > 0) {
-    cudaMemsetAsync(shed, 0, e, stream);
+    clear = nullptr;
   }
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return dk::deliver_launch(dst, lands, cls, e, n, q, k, src_cols, dst_cols,
                             nbytes, static_cast<int>(receipts), inbox_valid,
-                            n_dropped, edge_slot, scratch, stream);
+                            n_dropped, edge_slot, clear,
+                            static_cast<uint8_t*>(scratch) + own,
+                            scratch_size - static_cast<long long>(own),
+                            stream);
 }

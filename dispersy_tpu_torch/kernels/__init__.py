@@ -47,8 +47,8 @@ LAUNCHES = {"deliver": 0, "deliver_cls": 0, "deliver_ragged": 0,
             "store_remove": 0, "store_probe_conflict": 0,
             "store_probe_identity": 0, "store_probe_seq_max": 0}
 _LIBS: dict = {}
-MAX_COLS = 8           # csrc/deliver.cu, csrc/compact.cu MAX_COLS
-DELIVER_MAX_INBOX = 2048   # csrc/deliver.cu SEL_HALF
+MAX_COLS = 8           # csrc/deliver.cuh, csrc/compact.cu MAX_COLS
+DELIVER_MAX_EDGES = 1 << 30  # csrc/deliver.cuh MAX_EDGES (look-back counts)
 STORE_MAX_WIDTH = 256      # csrc/store.cu WMAX (M + B)
 BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
 STAGE_MAX_SLOTS = 32       # csrc/stage.cu MAX_S
@@ -164,7 +164,7 @@ _COL_DTYPES = (torch.uint32, torch.uint16, torch.uint8, torch.bool)
 
 def _edges(what, dst, cols, valid, cls, n_peers, inbox_size):
     """Check a delivery's edge list; returns (E, cls pointer, per-column
-    row bytes, column pointers)."""
+    row bytes)."""
     e = dst.shape[0]
     _req(dst, f"{what}.dst", (torch.int32,), (e,))
     _req(valid, f"{what}.valid", (torch.bool,), (e,))
@@ -176,11 +176,13 @@ def _edges(what, dst, cols, valid, cls, n_peers, inbox_size):
         _req(c, f"{what}.cols[{i}]", _COL_DTYPES)
         if c.shape[0] != e:
             raise KernelError(f"{what}.cols[{i}]: {c.shape[0]} rows != {e}")
-    if not 1 <= inbox_size <= DELIVER_MAX_INBOX:
-        raise KernelError(f"{what}: inbox_size {inbox_size} not in "
-                          f"[1, {DELIVER_MAX_INBOX}]")
-    if e >= 2 ** 31 or n_peers * inbox_size >= 2 ** 31 or n_peers < 1:
-        raise KernelError(f"{what}: edge or inbox index past int32")
+    if inbox_size < 1:
+        raise KernelError(f"{what}: inbox_size {inbox_size} < 1")
+    if e >= DELIVER_MAX_EDGES or n_peers * inbox_size >= 2 ** 31 \
+            or n_peers < 1:
+        raise KernelError(f"{what}: {e} edges (at most "
+                          f"{DELIVER_MAX_EDGES - 1}) or inbox index past "
+                          "int32")
     row_bytes = [c.element_size() * math.prod(c.shape[1:]) for c in cols]
     return e, (None if cls is None else cls.data_ptr()), row_bytes
 
@@ -193,8 +195,17 @@ def _inboxes(cols, n_peers, q, e, dev):
             torch.empty(e, dtype=torch.int32, device=dev))
 
 
+def _scratch(lib: str, fn: str, dev, *sizes) -> torch.Tensor:
+    """The scratch a delivery call needs, as sized by its library (every
+    argument a 64-bit integer, the row-bytes array by its address)."""
+    f = getattr(_lib(lib), fn)
+    f.restype = ctypes.c_longlong
+    f.argtypes = [ctypes.c_longlong] * len(sizes)
+    return torch.empty(f(*sizes), dtype=torch.uint8, device=dev)
+
+
 def deliver(dst, cols, valid, n_peers: int, inbox_size: int, cls=None):
-    """Stable counting-sort delivery (csrc/deliver.cu); with ``cls`` (u8
+    """Stable radix-sort delivery (csrc/deliver.cu); with ``cls`` (u8
     admission classes) the order inside a destination is (class, edge).
     Returns ``(inbox, inbox_valid, n_dropped, edge_slot)``."""
     e, cls_ptr, row_bytes = _edges("deliver", dst, cols, valid, cls, n_peers,
@@ -202,16 +213,16 @@ def deliver(dst, cols, valid, n_peers: int, inbox_size: int, cls=None):
     dev, q = dst.device, inbox_size
     inbox, inbox_valid, n_dropped, edge_slot = _inboxes(cols, n_peers, q, e,
                                                         dev)
-    nb = -(-n_peers // 1024)
-    scratch = torch.empty(4 * n_peers + 1 + nb + e, dtype=torch.int32,
-                          device=dev)
     src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
-    err = _fn("deliver", "dk_deliver", 15)(
+    scratch = _scratch("deliver", "dk_deliver_scratch", dev, e, n_peers,
+                       int(cls is not None), len(cols),
+                       ctypes.addressof(nbytes))
+    err = _fn("deliver", "dk_deliver", 16)(
         dst.data_ptr(), valid.data_ptr(), cls_ptr, e, n_peers, q, len(cols),
         ctypes.addressof(src), ctypes.addressof(out),
         ctypes.addressof(nbytes), inbox_valid.data_ptr(),
         n_dropped.data_ptr(), edge_slot.data_ptr(), scratch.data_ptr(),
-        _stream())
+        scratch.numel(), _stream())
     _check(err, "deliver", "deliver")
     LAUNCHES["deliver" if cls is None else "deliver_cls"] += 1
     return inbox, inbox_valid, n_dropped, edge_slot
@@ -236,17 +247,17 @@ def deliver_ragged(dst, cols, valid, n_peers: int, inbox_size: int,
                                                         dev)
     shed = torch.empty(e, dtype=torch.bool, device=dev)
     keep = torch.empty(e, dtype=torch.bool, device=dev)
-    nb = -(-n_peers // 1024)
-    scratch = torch.empty(4 * n_peers + 1 + nb + e + shards * n_peers
-                          + 260 * shards * shards, dtype=torch.int32,
-                          device=dev)
     src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
-    err = _fn("ragged", "dk_deliver_ragged", 20)(
+    scratch = _scratch("ragged", "dk_deliver_ragged_scratch", dev, e,
+                       n_peers, shards, int(cls is not None), len(cols),
+                       ctypes.addressof(nbytes))
+    err = _fn("ragged", "dk_deliver_ragged", 21)(
         dst.data_ptr(), valid.data_ptr(), cls_ptr, e, n_peers, q, shards,
         budget, int(need_receipts), len(cols), ctypes.addressof(src),
         ctypes.addressof(out), ctypes.addressof(nbytes),
         inbox_valid.data_ptr(), n_dropped.data_ptr(), edge_slot.data_ptr(),
-        shed.data_ptr(), keep.data_ptr(), scratch.data_ptr(), _stream())
+        shed.data_ptr(), keep.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        _stream())
     _check(err, "ragged", "deliver_ragged")
     LAUNCHES["deliver_ragged"] += 1
     return inbox, inbox_valid, n_dropped, edge_slot, shed

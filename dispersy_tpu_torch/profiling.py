@@ -459,11 +459,191 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     }
 
 
+def delivery_cases(n_peers: int = 1 << 20, seed: int = 0) -> dict:
+    """K1's and K12's call shapes in the rounds at ``n_peers`` peers, on
+    random inputs made with a numpy seed on the card: ``{name: (kernel,
+    plain, yardstick)}``, three functions of no argument -- the kernel's
+    wrapper, its plain version and one ``torch.sort`` of the packed
+    (destination, class, position) key that orders the same edges."""
+    import torch
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import inbox
+    from dispersy_tpu_torch.ops import overload as ovo
+
+    rs = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    n = n_peers
+    leg, chaos = slice_config(n), chaos_config(n)
+
+    def u32(*shape, hi=1 << 32):
+        a = rs.integers(0, hi, size=shape, dtype=np.uint64)
+        return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(
+            dev).view(torch.uint32)
+
+    def u16(e):
+        a = rs.integers(0, 1 << 16, size=e).astype(np.uint16)
+        return torch.from_numpy(a.view(np.int16)).to(dev).view(torch.uint16)
+
+    def u8(e, hi=256):
+        return torch.from_numpy(rs.integers(0, hi, size=e).astype(
+            np.uint8)).to(dev)
+
+    def edges(e, n_dst, p, lo=-1):
+        dst = torch.from_numpy(rs.integers(lo, n_dst + 1, size=e).astype(
+            np.int32)).to(dev)
+        return dst, torch.from_numpy(rs.random(e) < p).to(dev)
+
+    def sort_key(dst, valid, n_dst, cls=None, shards=0):
+        e = dst.shape[0]
+        ok = valid & (dst >= 0) & (dst < n_dst)
+        key = torch.where(ok, dst.long(), n_dst) * 256
+        if cls is not None:
+            key = key + cls.long()
+        if not shards:
+            return key * e + torch.arange(e, device=dev)
+        el = -(-e // shards)
+        pad = torch.full((shards * el - e,), n_dst * 256, dtype=torch.int64,
+                         device=dev)
+        key = torch.cat([key, pad])
+        return (key * el + torch.arange(shards * el, device=dev) % el
+                ).reshape(shards, el)
+
+    def k1(dst, cols, valid, n_dst, q, cls=None):
+        key = sort_key(dst, valid, n_dst, cls)
+        return (lambda: kernels.deliver(dst, cols, valid, n_dst, q, cls),
+                lambda: inbox.deliver_plain(dst, cols, valid, n_dst, q, cls),
+                lambda: torch.sort(key))
+
+    def k12(dst, cols, valid, q, budget, cls, receipts, shards=8):
+        key = sort_key(dst, valid, n, cls, shards)
+        return (lambda: kernels.deliver_ragged(dst, cols, valid, n, q, shards,
+                                               budget, cls, receipts),
+                lambda: inbox.deliver_ragged_plain(dst, cols, valid, n, q,
+                                                   shards, budget, cls,
+                                                   receipts),
+                lambda: torch.sort(key, dim=1))
+
+    e = n * leg.forward_buffer * leg.forward_fanout
+    q, r = leg.push_inbox, leg.request_inbox
+    idx = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    cases = {}
+    dst, valid = edges(e, n, 0.9)
+    cases["legacy_push"] = k1(dst, [u32(e), u32(e), u8(e, 8), u32(e),
+                                    u32(e)], valid, n, q)
+    cases["diet_push_u16"] = k1(dst, [u32(e), u32(e), u8(e, 8), u32(e),
+                                      u16(e)], valid, n, q)
+    dst, valid = edges(n, n, 0.9)
+    cases["request_bloom"] = k1(dst, [idx] + [u32(n) for _ in range(5)]
+                                + [u32(n, leg.bloom_words)], valid, n, r)
+    cases["ragged_request"] = k12(dst, [idx, u32(n)], valid, r, 0, None,
+                                  True)
+    dst, valid = edges(n, leg.n_trackers, 0.08, lo=0)
+    cases["tracker"] = k1(dst, [idx, u32(n)], valid, leg.n_trackers,
+                          leg.tracker_inbox)
+    dst, valid = edges(n * r, n, 0.7)
+    cases["puncture"] = k1(dst, [u32(n * r, hi=n)], valid, n, r)
+    cases["ragged_puncture"] = k12(dst, [u32(n * r, hi=n)], valid, r, 0,
+                                   None, False)
+    ep = n * r + leg.n_trackers * leg.tracker_inbox
+    dst, valid = edges(ep, n, 0.7)
+    cases["ragged_puncture_request"] = k12(dst, [u32(ep, hi=n)], valid, r,
+                                           0, None, False)
+    fm = chaos.faults
+    e = (n * chaos.forward_buffer * chaos.forward_fanout
+         + len(fm.flood_senders) * fm.flood_fanout)
+    cols = [u32(e), u32(e), u8(e, 8), u32(e), u32(e),
+            torch.from_numpy(rs.random(e) < 0.001).to(dev)]
+    cls = ovo.admission_class(cols[2], chaos.n_meta,
+                              chaos.priorities).to(torch.uint8)
+    dst, valid = edges(e, n, 0.05)
+    cases["cls_push"] = k1(dst, cols, valid, n, chaos.push_inbox, cls)
+    cases["ragged_push_cls"] = k12(dst, cols, valid, chaos.push_inbox,
+                                   chaos.parallel.cross_shard_budget, cls,
+                                   False)
+    return cases
+
+
+def profile_delivery(n_peers: int = 1 << 20, reps: int = 20,
+                     seed: int = 0) -> dict:
+    """Each of :func:`delivery_cases` on the card: the kernel held bit
+    for bit against its plain version once, then ``reps`` calls of the
+    kernel and of its ``torch.sort`` yardstick timed with CUDA events
+    (medians), and ``reps`` more kernel calls traced with
+    ``torch.profiler``: the device time per call of each device function
+    and memset of the call, and the device events per call (launches and
+    memsets).  ``python -m dispersy_tpu_torch.profiling --delivery``
+    prints it as one JSON line."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
+    def same(a, b):
+        a, b = flat(a), flat(b)
+        return len(a) == len(b) and all(
+            x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+                x.view(torch.uint8), y.view(torch.uint8))
+            for x, y in zip(a, b))
+
+    def cuda_ms(fn):
+        for _ in range(3):
+            fn()
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for a, b in evs:
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+    out = {"n_peers": n_peers, "reps": reps,
+           "device": torch.cuda.get_device_name(0), "cases": {}}
+    for name, (kernel, plain, yardstick) in delivery_cases(
+            n_peers, seed).items():
+        if not same(kernel(), plain()):
+            raise AssertionError(f"{name}: the kernel differs from its "
+                                 "plain version")
+        row = {"kernel_ms": cuda_ms(kernel), "sort_ms": cuda_ms(yardstick)}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kernel()
+            torch.cuda.synchronize()
+        stages = {}
+        events = 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CPU or not ev.self_device_time_total:
+                continue
+            key = ev.key.replace("(anonymous namespace)::", "")
+            key = key.removeprefix("void ").split("(")[0].split("<")[0]
+            key = key.split("::")[-1].strip()
+            st = stages.setdefault(key, [0.0, 0])
+            st[0] += ev.self_device_time_total / 1e3 / reps
+            st[1] += ev.count / reps
+            events += ev.count
+        row["device_events_per_call"] = events / reps
+        row["stages_ms"] = {k: v[0] for k, v in stages.items()}
+        row["stage_calls"] = {k: v[1] for k, v in stages.items()}
+        out["cases"][name] = row
+    return out
+
+
 if __name__ == "__main__":
     import argparse
     import json
     ap = argparse.ArgumentParser(description=profile_rounds.__doc__)
     which = ap.add_mutually_exclusive_group()
+    which.add_argument("--delivery", action="store_true",
+                       help="time and trace K1 and K12 at each call shape "
+                       "of the 1M rounds (profile_delivery)")
     which.add_argument("--diet", action="store_true",
                        help="trace the byte-diet round of bench_config")
     which.add_argument("--timeline", action="store_true",
@@ -474,6 +654,9 @@ if __name__ == "__main__":
     which.add_argument("--chaos", action="store_true",
                        help="trace the chaos round of chaos_config")
     args = ap.parse_args()
+    if args.delivery:
+        print(json.dumps(profile_delivery()))
+        raise SystemExit(0)
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
                                     hardened=args.hardened, chaos=args.chaos,
                                     rounds=5 if args.timeline else 3)))

@@ -69,18 +69,46 @@ def u32(rs, *shape, hi=1 << 32):
 
 # ---- K1 deliver -------------------------------------------------------------
 
-DELIVER_SHAPES = [  # (E, N, Q, W, p_valid)
-    (DIMS["E"], DIMS["N"], DIMS["Q"], DIMS["W"], 0.8),   # contract dims
-    (200, 16, 3, 0, 0.9),      # overflow everywhere
-    (333, 40, 5, 15, 0.5),     # the [E, 15] bloom column
-    (1000, 3, 64, 0, 0.7),     # tracker-like: few large groups
+DELIVER_SHAPES = [  # (E, N, Q, W, p_valid, exact groups)
+    (DIMS["E"], DIMS["N"], DIMS["Q"], DIMS["W"], 0.8, ()),  # contract dims
+    (200, 16, 3, 0, 0.9, ()),     # overflow everywhere
+    (333, 40, 5, 15, 0.5, ()),    # the [E, 15] bloom column
+    (1000, 3, 64, 0, 0.7, ()),    # tracker-like: few large groups
+    # The radix core's corners: groups of exactly 32 and 33 edges, one
+    # hot destination above 2048 edges, no edges, every edge invalid,
+    # Q = 1, and n not a multiple of 1024.
+    (100, 6, 32, 0, 1.0, (32, 33)),
+    (2400, 5, 40, 3, 1.0, (2100,)),
+    (0, 8, 4, 0, 0.5, ()),
+    (50, 16, 4, 0, 0.0, ()),
+    (300, 20, 1, 2, 0.9, ()),
+    (4000, 1027, 3, 0, 0.8, ()),
 ]
 
 
-@pytest.mark.parametrize("e,n,q,w,p", DELIVER_SHAPES)
-def test_deliver(e, n, q, w, p):
+def _shape_id(shape) -> str:
+    """The parameter id: the first five fields as pytest writes them, then
+    the exact groups, if any."""
+    head = "-".join(str(v) for v in shape[:5])
+    return head + "".join(f"-g{g}" for g in shape[5])
+
+
+def deliver_dst(rs, e, n, groups):
+    """Destinations in [-2, n + 2) (parked ends), with destination i
+    holding exactly ``groups[i]`` edges at random positions."""
+    k = len(groups)
+    dst = np.concatenate([np.full(g, i) for i, g in enumerate(groups)]
+                         + [rs.integers(k, n + 2, size=e - sum(groups))])
+    if not k:
+        dst = rs.integers(-2, n + 2, size=e)
+    return rs.permutation(dst).astype(np.int32)
+
+
+@pytest.mark.parametrize("e,n,q,w,p,groups", DELIVER_SHAPES,
+                         ids=[_shape_id(s) for s in DELIVER_SHAPES])
+def test_deliver(e, n, q, w, p, groups):
     rs = np.random.default_rng(e + n)
-    dst = rs.integers(-2, n + 2, size=e).astype(np.int32)  # parked ends
+    dst = deliver_dst(rs, e, n, groups)
     valid = rs.random(e) < p
     cols = [np.arange(e, dtype=np.uint32), u32(rs, e),
             rs.integers(0, 256, size=e).astype(np.uint8),
@@ -94,6 +122,9 @@ def test_deliver(e, n, q, w, p):
     same(got.inbox, want.inbox)
     same(got[1:], want[1:])
     assert int(to_np(got.n_dropped).sum()) > 0 or e < n * q
+    for i, g in enumerate(groups):
+        assert int(to_np(got.n_dropped)[i]) == max(0, g - q)
+        assert int(to_np(got.inbox_valid)[i].sum()) == min(g, q)
 
 
 # ---- K2 bloom -----------------------------------------------------------------

@@ -108,14 +108,32 @@ def test_ragged_at_budget_zero_is_the_global_delivery(s, with_cls):
     assert not to_np(got.shed).any()
 
 
-@pytest.mark.parametrize("e,n,q", [(200, 16, 3), (1000, 3, 64),
-                                   ((1 << 18) + 5, 64, 4)])
-def test_deliver_with_cls_equals_jax(e, n, q):
+# (E, N, Q, classes): random classes, then the radix core's corners --
+# every class equal (the order is plain edge order) and one group of 256
+# edges holding all 256 classes once.
+CLS_CASES = [
+    pytest.param(200, 16, 3, "random", id="200-16-3"),
+    pytest.param(1000, 3, 64, "random", id="1000-3-64"),
+    pytest.param((1 << 18) + 5, 64, 4, "random", id="262149-64-4"),
+    pytest.param(300, 7, 4, "equal", id="300-7-4-equal"),
+    pytest.param(600, 40, 260, "distinct", id="600-40-260-distinct"),
+]
+
+
+@pytest.mark.parametrize("e,n,q,classes", CLS_CASES)
+def test_deliver_with_cls_equals_jax(e, n, q, classes):
     """K1's (destination, class, position) order, in the packed-key form
     of the JAX op and, where destination, class and position bits pass
-    32 (the last shape), its three-key form."""
+    32 (the third shape), its three-key form."""
     rs = np.random.default_rng(e + q)
     dst, valid, cols, cls = edges(rs, e, n, hot=0.0)
+    if classes == "equal":
+        cls[:] = 7
+    if classes == "distinct":
+        dst[:256] = 5
+        valid[:256] = True
+        cls[:256] = rs.permutation(256)
+        dst[256:][dst[256:] == 5] = 6
     want = _JAX_DELIVER(
         jnp.asarray(dst), [jnp.asarray(c) for c in cols[:2]],
         jnp.asarray(valid), n_peers=n, inbox_size=q,
@@ -124,10 +142,17 @@ def test_deliver_with_cls_equals_jax(e, n, q):
                         to_t(valid), n, q, to_t(cls))
     same(got.inbox, want.inbox)
     same(got[1:], want[1:])
-    # The class matters: the same edges in plain edge order land
-    # differently.
+    # The class orders the edges: the same edges in plain edge order land
+    # differently, unless every class is the same.
     plain = inbox.deliver(to_t(dst), [to_t(cols[0])], to_t(valid), n, q)
-    assert not torch.equal(plain.inbox[0], got.inbox[0])
+    assert torch.equal(plain.inbox[0], got.inbox[0]) == (classes == "equal")
+    if classes == "distinct":
+        landed = to_np(got.inbox[1])[5][:256]
+        assert (to_np(got.inbox_valid)[5][:256]).all()
+        np.testing.assert_array_equal(np.sort(cls[:256]), np.arange(256))
+        # Slot s holds the edge of class s.
+        order = np.argsort(cls[:256])
+        np.testing.assert_array_equal(landed, cols[1][:256][order])
 
 
 def test_wrappers_refuse_cpu_tensors():
