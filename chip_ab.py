@@ -9,8 +9,9 @@ commit unpacked with ``git archive`` into a git-ignored directory) and of
 this one in the order other, this, this, other -- each run a process of
 its own that imports its checkout's ``chip_smoke.py`` and builds its
 kernels -- and prints one JSON line a run (``{"tag", "root", "paths":
-{path: {"ms", "round_ms", "peak_gib"}}}``), then the medians side by
-side.  Needs a CUDA card.
+{path: {"ms", "round_ms", "peak_gib"}}}``), then for each path the
+medians side by side and every run's round times and peak memory.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -95,6 +96,11 @@ def main() -> int:
     for path in runs[0]["paths"]:
         print(path, " ".join(f"{r['tag']} {r['paths'][path]['ms']:.2f}"
                              for r in runs), flush=True)
+        for r in runs:
+            got = r["paths"][path]
+            print(f"  {r['tag']:5s} rounds " + " ".join(
+                f"{t:.2f}" for t in got["round_ms"])
+                + f"  peak {got['peak_gib']:.4f} GiB", flush=True)
     return 0
 
 

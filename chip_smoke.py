@@ -11,10 +11,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernels: every kernel of the five paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes (K1 at each of its call shapes, and the delivery
-   core's corners for K1, K1 with classes and K12), the byte-diet round's (u16 aux columns, per-row
-   Bloom salts, the cohort block, the staging buffer), the permissioned
-   round's (the [N, 8] grant tables, the store replays in each K9 mode,
-   store_remove, K3 with a LastSync history), then the hardened round's
+   core's corners for K1, K1 with classes and K12; K3 at the intake
+   merge and the one-record insert, and K3's corners: rings out of
+   order, ties, empty and overflowing rows, B = 1, 8, 24, M + B = 256,
+   history groups across ring and batch, u16 aux), the byte-diet round's
+   (u16 aux columns, per-row Bloom salts, the cohort block, the staging
+   buffer), the permissioned round's (the [N, 8] grant tables, the store
+   replays in each K9 mode at the intake's and the retro pass's shapes,
+   and K9's corners: Q = 1, 24, 48, nothing or everything selected,
+   times at and above 2^31, several rows of one key; store_remove, K3
+   with a LastSync history), then the hardened round's
    (the store probes in each K11 mode, with planted hits), then the
    chaos round's (K12 on the capped push blast with admission classes,
    on the exact request channel with receipts, where it must also equal
@@ -22,7 +28,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unsharded push blast) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events beside the plain version, the bytes bound and, where one
-   PyTorch call does the same work, that call;
+   PyTorch call does the same work, that call (for K1 and K12
+   ``torch.sort`` of the packed destination key, for K3 of the packed
+   (gt, member) key);
 3. parity: 4096-peer runs on the card through the kernels and on the CPU
    through the plain versions, equal on every state leaf after every
    round: the legacy ring for 20 rounds, the byte-diet
@@ -48,7 +56,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    round of ``chaos_config(1 << 20)`` sharded (3 + 5 rounds; the cap
    must shed in the timed rounds) and unsharded (3 + 5 rounds, K1 with
    admission classes), each printing its shed, recovery and health
-   totals.
+   totals and the count of store rows that break K3's merge-path
+   invariant (``ring_unordered_rows``, expected 0).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -116,22 +125,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_times(fn, reps: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``reps`` launches of ``fn``, each between
-    its own pair of CUDA events, after ``warmup`` launches."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for a, b in events:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over paired tensors (integers and
     bools compared as int64); a shape or dtype mismatch fails."""
@@ -157,37 +150,13 @@ def nbytes(*ts) -> int:
 
 # ---- phase 2: the kernels against their plain versions ---------------------
 
-class Inputs:
-    """Random inputs made with a numpy seed, on the card, and the shapes
-    of the 1M-peer round (``cfg`` is the path's config)."""
-
-    def __init__(self, cfg, seed: int):
-        import numpy as np
-        import torch
-        self.np, self.torch = np, torch
-        self.cfg = cfg
-        self.rs = np.random.default_rng(seed)
-        self.dev = torch.device("cuda")
-
-    def u32(self, *shape, hi=1 << 32):
-        a = self.rs.integers(0, hi, size=shape, dtype=self.np.uint64)
-        return self.from_u32(a)
-
-    def from_u32(self, a):
-        a = self.np.asarray(a).astype(self.np.uint32).view(self.np.int32)
-        return self.torch.from_numpy(a).to(self.dev).view(self.torch.uint32)
-
-    def u16(self, *shape, hi=1 << 16):
-        a = self.rs.integers(0, hi, size=shape).astype(self.np.uint16)
-        return self.torch.from_numpy(a.view(self.np.int16)).to(
-            self.dev).view(self.torch.uint16)
-
-    def u8(self, *shape, hi=256):
-        a = self.rs.integers(0, hi, size=shape).astype(self.np.uint8)
-        return self.torch.from_numpy(a).to(self.dev)
-
-    def flags(self, p, *shape):
-        return self.torch.from_numpy(self.rs.random(shape) < p).to(self.dev)
+def inputs(cfg, seed: int):
+    """Random inputs made with a numpy seed, on the card
+    (``profiling.Draw``), carrying the path's 1M-peer config ``cfg``."""
+    from dispersy_tpu_torch.profiling import Draw
+    x = Draw(seed, "cuda")
+    x.cfg = cfg
+    return x
 
 
 def timed_entry(name, route, source, replaces, got, want, kernel_fn,
@@ -196,13 +165,14 @@ def timed_entry(name, route, source, replaces, got, want, kernel_fn,
     """Hold a kernel's outputs against its plain version's, then time
     kernel, plain version and library call; one kernels-JSON row.
     ``kernel`` is the row's ``kernels.LAUNCHES`` key (default ``name``)."""
+    from dispersy_tpu_torch.profiling import cuda_ms
     err = max_abs_err(got, want)
     if err != 0:
         fail(f"kernel {name} disagrees with its plain version "
              f"(max abs err {err})")
-    ms = cuda_times(kernel_fn, reps)
-    plain_ms = cuda_times(plain_fn, reps)
-    lib_ms = cuda_times(library_fn, reps) if library_fn else None
+    ms = cuda_ms(kernel_fn, reps)
+    plain_ms = cuda_ms(plain_fn, reps)
+    lib_ms = cuda_ms(library_fn, reps) if library_fn else None
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     row = {"name": name, "route": route, "source": source,
@@ -216,7 +186,7 @@ def timed_entry(name, route, source, replaces, got, want, kernel_fn,
     return row
 
 
-def k1_row(x: Inputs, name, dst, valid, cols, n_dst, q, got, want, reps,
+def k1_row(x: Draw, name, dst, valid, cols, n_dst, q, got, want, reps,
            cls=None, kernel="deliver") -> dict:
     """A K1 kernels-JSON row: ``got`` held against ``want``, then K1, its
     plain version and ``torch.sort`` of the packed (destination, class,
@@ -244,7 +214,7 @@ def k1_row(x: Inputs, name, dst, valid, cols, n_dst, q, got, want, reps,
         reps, library_fn=lambda: torch.sort(key), kernel=kernel)
 
 
-def check_deliver(x: Inputs, reps: int) -> list:
+def check_deliver(x: Draw, reps: int) -> list:
     """K1 at each of its call shapes in the legacy round, each timed: the
     push blast (E = N·F·C, five columns, Q = push_inbox), the request
     (seven columns with the [E, W] bloom), the tracker call (N = T, Q =
@@ -275,7 +245,7 @@ def check_deliver(x: Inputs, reps: int) -> list:
     return rows
 
 
-def deliver_case(x: Inputs, e, n_dst, q, cols, p_valid, lo=-1):
+def deliver_case(x: Draw, e, n_dst, q, cols, p_valid, lo=-1):
     """K1 and its plain version on one random edge list: ``(dst, valid,
     kernel outputs, plain outputs)``."""
     from dispersy_tpu_torch import kernels
@@ -289,7 +259,7 @@ def deliver_case(x: Inputs, e, n_dst, q, cols, p_valid, lo=-1):
             [*want.inbox, *want[1:]])
 
 
-def corner_dst(x: Inputs, e, n_dst, groups=(), lo=-1):
+def corner_dst(x: Draw, e, n_dst, groups=(), lo=-1):
     """i32[e] destinations in [lo, n_dst] (the ends parked), destination i
     holding exactly ``groups[i]`` edges at random positions."""
     np = x.np
@@ -302,7 +272,7 @@ def corner_dst(x: Inputs, e, n_dst, groups=(), lo=-1):
     return x.torch.from_numpy(dst).to(x.dev)
 
 
-def check_deliver_corners(x: Inputs, reps: int) -> list:
+def check_deliver_corners(x: Draw, reps: int) -> list:
     """The radix core's corners, untimed, each held bit for bit against
     the plain version on the card: K1 with and without admission
     classes, K12 exact with receipts and capped (budget 64) with classes
@@ -355,7 +325,7 @@ def check_deliver_corners(x: Inputs, reps: int) -> list:
     return []
 
 
-def check_bloom(x: Inputs, reps: int) -> list:
+def check_bloom(x: Draw, reps: int) -> list:
     """K2: the build over the claimed slice; the query per request slot,
     on row-strided views of the [N, R, W] request inbox."""
     torch = x.torch
@@ -395,57 +365,126 @@ def check_bloom(x: Inputs, reps: int) -> list:
     return rows
 
 
-def store_inputs(x: Inputs):
+def store_inputs(x: Draw, b: int | None = None):
     """Sorted rings with a random fill and a batch of the intake width
-    (sync + push), keys drawn from a small range so that duplicates
-    against the ring and inside the batch are common."""
-    np = x.np
-    from dispersy_tpu_torch.ops import store as st
-    cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
-    b = cfg.response_budget + cfg.push_inbox
-    g = x.rs.integers(1, 200, size=(n, m))
-    mem = x.rs.integers(0, 6, size=(n, m))
-    order = np.lexsort((mem, g), axis=1)
-    live = np.arange(m)[None, :] < x.rs.integers(0, m + 1, size=n)[:, None]
-    empty = 0xFFFFFFFF
-    store = st.StoreCols(
-        gt=x.from_u32(np.where(live, np.take_along_axis(g, order, 1), empty)),
-        member=x.from_u32(np.where(live, np.take_along_axis(mem, order, 1),
-                                   empty)),
-        meta=x.torch.where(x.torch.from_numpy(live).to(x.dev),
-                           x.u8(n, m, hi=4), 255).to(x.torch.uint8),
-        payload=x.u32(n, m), aux=x.u32(n, m, hi=3), flags=x.u8(n, m, hi=2))
-    batch = st.StoreCols(
-        gt=x.u32(n, b, hi=200), member=x.u32(n, b, hi=6),
-        meta=x.u8(n, b, hi=4), payload=x.u32(n, b), aux=x.u32(n, b, hi=3),
-        flags=x.u8(n, b, hi=2))
-    return store, batch
+    (sync + push; or ``b``), keys drawn from a small range so that
+    duplicates against the ring and inside the batch are common
+    (``profiling.store_inputs``)."""
+    from dispersy_tpu_torch.profiling import store_inputs as draw
+    cfg = x.cfg
+    return draw(x, cfg.n_peers, cfg.msg_capacity,
+                cfg.response_budget + cfg.push_inbox if b is None else b)
 
 
-def check_store(x: Inputs, reps: int) -> list:
-    """K3 with the fused compaction.  Its bytes: the ring's (gt, member)
-    keys and the batch mask in full, the batch keys under the mask, the
-    other four columns (10 B) of the records that survive only, and every
-    output."""
+def k3_row(x: Draw, name, store, batch, mask, history=(), reps=REPS,
+           replaces="dispersy_tpu/ops/store.py:265") -> dict:
+    """A K3 kernels-JSON row: the kernel held against its plain version,
+    then both timed beside ``torch.sort`` of the packed (gt, member) key
+    over the [N, M + B] concatenation (the sort form's ordering step);
+    the bound is ``profiling.k3_bytes``."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
-    n, m = x.cfg.n_peers, x.cfg.msg_capacity
+    from dispersy_tpu_torch.profiling import k3_bytes, k3_yardstick
+    want = st.store_insert_plain(store, batch, mask, history)
+    want = [*want.store, want.n_inserted, want.n_dropped, want.n_evicted]
+    got = list(kernels.store_insert(store, batch, mask, history))
+    return timed_entry(
+        name, "cuda", "dispersy_tpu_torch/csrc/store.cu", replaces, got,
+        want, lambda: kernels.store_insert(store, batch, mask, history),
+        lambda: st.store_insert_plain(store, batch, mask, history),
+        k3_bytes(store, mask, want, history), reps,
+        library_fn=k3_yardstick(store, batch, mask),
+        kernel="store_insert_history" if history else "store_insert")
+
+
+def check_store(x: Draw, reps: int) -> list:
+    """K3 with the fused compaction at the intake merge [N, 48] + [N, 24],
+    and at ``create_messages``' one-record insert [N, 48] + [N, 1] (one
+    author in 64)."""
     store, batch = store_inputs(x)
-    mask = x.flags(0.6, *batch.gt.shape)
-    want = st.store_insert_plain(store, batch, mask)
-    got = list(kernels.store_insert(store, batch, mask))
-    kept = int((got[0].view(x.torch.int32) != -1).sum())
-    moved = (8 * n * m + nbytes(mask) + 8 * int(mask.sum()) + 10 * kept
-             + nbytes(*got))
-    return [timed_entry(
-        "store_insert", "cuda", "dispersy_tpu_torch/csrc/store.cu",
-        "dispersy_tpu/ops/store.py:265", got,
-        [*want.store, want.n_inserted, want.n_dropped, want.n_evicted],
-        lambda: kernels.store_insert(store, batch, mask),
-        lambda: st.store_insert_plain(store, batch, mask), moved, reps)]
+    rows = [k3_row(x, "store_insert", store, batch,
+                   x.flags(0.6, *batch.gt.shape), reps=reps)]
+    store, batch = store_inputs(x, 1)
+    rows.append(k3_row(x, "store_insert_one", store, batch,
+                       x.flags(1 / 64, *batch.gt.shape), reps=reps))
+    return rows
 
 
-def check_compact(x: Inputs, reps: int) -> list:
+def check_store_corners(x: Draw, reps: int) -> list:
+    """K3 on the inputs its two rank paths branch on, untimed, bit-equal
+    to the plain version (64K rows each, with and without a history of
+    k = 1 and k = 2): rings out of order (permuted, EMPTY holes in the
+    middle), so the O(W^2) rank runs; (gt, member) ties ring against
+    batch and inside the batch; all-EMPTY rows; full rings that
+    overflow; B = 1, 8 and 24; M + B = 256 (B = 56, past one warp);
+    history groups that span ring and batch; u16 aux."""
+    np, torch = x.np, x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import store_inputs as draw
+    from dispersy_tpu_torch.u32 import cast
+    n = 1 << 16
+
+    def sorted_ring(m, b, keys, members, fill=None):
+        """Rings sorted by (gt, member) with holes last, ``fill`` live
+        slots (default random), and a batch, keys from the ranges."""
+        g = x.rs.integers(1, keys, size=(n, m))
+        mem = x.rs.integers(0, members, size=(n, m))
+        order = np.lexsort((mem, g), axis=1)
+        g, mem = (np.take_along_axis(a, order, 1) for a in (g, mem))
+        k = (x.rs.integers(0, m + 1, size=n) if fill is None
+             else np.full(n, fill))
+        live = np.arange(m)[None, :] < k[:, None]
+        store, batch = draw(x, n, m, b)
+        store = store._replace(
+            gt=x.from_u32(np.where(live, g, 0xFFFFFFFF)),
+            member=x.from_u32(np.where(live, mem, 0xFFFFFFFF)))
+        return store, batch._replace(gt=x.u32(n, b, hi=keys),
+                                     member=x.u32(n, b, hi=members))
+
+    def bits_of(c):
+        return c.view(torch.int32) if c.element_size() == 4 else c
+
+    cases = {}
+    store, batch = sorted_ring(48, 24, 200, 6)
+    perm = torch.from_numpy(np.argsort(x.rs.random((n, 48)), 1)).to(x.dev)
+    cases["unsorted"] = (st.StoreCols(*(
+        torch.gather(bits_of(c), 1, perm).view(c.dtype) for c in store)),
+        batch, x.flags(0.7, n, 24))
+    store, batch = sorted_ring(48, 24, 200, 6)
+    hole = x.flags(0.15, n, 48)
+    cases["holes"] = (store._replace(gt=torch.where(
+        hole, -1, store.gt.view(torch.int32)).view(torch.uint32)), batch,
+        x.flags(0.7, n, 24))
+    cases["ties"] = (*sorted_ring(48, 24, 4, 2), x.flags(0.8, n, 24))
+    cases["all_empty"] = (*sorted_ring(48, 24, 200, 6, fill=0),
+                          x.flags(0.0, n, 24))
+    cases["full_overflow"] = (*sorted_ring(48, 24, 1 << 20, 1 << 20,
+                                           fill=48), x.flags(1.0, n, 24))
+    for b in (1, 8):
+        cases[f"b{b}"] = (*sorted_ring(48, b, 12, 3), x.flags(0.8, n, b))
+    cases["width256"] = (*sorted_ring(200, 56, 40, 4), x.flags(0.7, n, 56))
+    store, batch = sorted_ring(48, 24, 30, 3)
+    cases["u16_aux"] = (store._replace(aux=cast(store.aux, torch.uint16)),
+                        batch._replace(aux=cast(batch.aux, torch.uint16)),
+                        x.flags(0.7, n, 24))
+    for name, (store, batch, mask) in cases.items():
+        for history in ((), (1, 2, 0, 1)):
+            want = st.store_insert_plain(store, batch, mask, history)
+            err = max_abs_err(
+                kernels.store_insert(store, batch, mask, history),
+                [*want.store, want.n_inserted, want.n_dropped,
+                 want.n_evicted])
+            if err != 0:
+                fail(f"kernel store_insert corner {name} (history "
+                     f"{history}) disagrees with its plain version (max "
+                     f"abs err {err})")
+        print(f"kernel store_insert corner {name}: mismatches 0 (untimed, "
+              "with and without a history)", flush=True)
+    return []
+
+
+def check_compact(x: Draw, reps: int) -> list:
     """K4 at the responder's outbox (six columns, one slot map over the
     store width, width = response_budget), timed; and at the forward
     buffer (five columns over the intake batch, width = forward_buffer).
@@ -485,7 +524,7 @@ def check_compact(x: Inputs, reps: int) -> list:
         lambda: st.rank_compact_many_plain(cols, slot, b), moved, reps)]
 
 
-def check_intake(x: Inputs, reps: int) -> list:
+def check_intake(x: Draw, reps: int) -> list:
     """K5 on a ring and a batch of the intake width."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import intake
@@ -509,12 +548,13 @@ def check_intake(x: Inputs, reps: int) -> list:
         nbytes(*args) + 2 * n * b, reps, ops=2 * n * b * (m + b))]
 
 
-KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom, check_store, check_compact,
+KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom,
+                 check_store, check_store_corners, check_compact,
                  check_intake)
 
 # ---- phase 2, the byte-diet round's call shapes ------------------------------
 
-def check_diet_deliver(x: Inputs, reps: int) -> list:
+def check_diet_deliver(x: Draw, reps: int) -> list:
     """K1 on the diet's push blast, whose fifth column is the forward
     buffer's u16 aux (timed), and on the quiet round's 2-column request
     (the staggered sync round's too)."""
@@ -533,7 +573,7 @@ def check_diet_deliver(x: Inputs, reps: int) -> list:
                    want, reps)]
 
 
-def check_diet_bloom(x: Inputs, reps: int) -> list:
+def check_diet_bloom(x: Draw, reps: int) -> list:
     """K6 digest_update on the landed arrivals [N, 24] with per-peer
     epoch salts; K2's query of the same items against the digest (the
     freshness test, per-row salt), its serve query of a cohort block
@@ -605,41 +645,13 @@ def check_diet_bloom(x: Inputs, reps: int) -> list:
     return rows
 
 
-def diet_cols(x: Inputs, rows: int, width: int, prefix: bool):
-    """Record columns with a u16 aux: a sorted ring (``prefix`` False) or
-    a staging buffer with a valid prefix of random length."""
-    from dispersy_tpu_torch.ops import store as st
-    from dispersy_tpu_torch.u32 import cast
-    np = x.np
-    g = x.rs.integers(1, 200, size=(rows, width))
-    mem = x.rs.integers(0, 6, size=(rows, width))
-    if not prefix:
-        order = np.lexsort((mem, g), axis=1)
-        g = np.take_along_axis(g, order, 1)
-        mem = np.take_along_axis(mem, order, 1)
-    live = (np.arange(width)[None, :]
-            < x.rs.integers(0, width + 1, size=rows)[:, None])
-    tl = x.torch.from_numpy(live).to(x.dev)
-    empty = 0xFFFFFFFF
-    return st.StoreCols(
-        gt=x.from_u32(np.where(live, g, empty)),
-        member=x.from_u32(np.where(live, mem, empty)),
-        meta=x.torch.where(tl, x.u8(rows, width, hi=4), 255).to(
-            x.torch.uint8),
-        payload=x.from_u32(np.where(live, x.rs.integers(
-            0, 1 << 32, size=(rows, width), dtype=np.uint64), empty)),
-        aux=cast(x.torch.where(tl, x.u32(rows, width, hi=3).view(
-            x.torch.int32), 0).view(x.torch.uint32), x.torch.uint16),
-        flags=x.torch.where(tl, x.u8(rows, width, hi=2), 0).to(
-            x.torch.uint8))
-
-
-def check_diet_stage(x: Inputs, reps: int) -> list:
+def check_diet_stage(x: Draw, reps: int) -> list:
     """K7 store_stage: the [N, 24] intake batch (u32 aux, narrowed in the
     kernel) into the [N, 8] staging buffer.  Its bytes: the mask, the
     staging row, the columns of the arrivals that land, every output."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import diet_cols
     cfg, n = x.cfg, x.cfg.n_peers
     s = cfg.store.staging
     b = cfg.response_budget + cfg.push_inbox
@@ -665,13 +677,14 @@ def check_diet_stage(x: Inputs, reps: int) -> list:
         lambda: st.store_stage_plain(staging, cast_b, mask), moved, reps)]
 
 
-def check_diet_store(x: Inputs, reps: int) -> list:
+def check_diet_store(x: Draw, reps: int) -> list:
     """K3 at the staggered compaction: a cohort block's [N/4, 48] ring
     and its [N/4, 8] staging buffer, u16 aux; and, untimed, the same
     merge with a LastSync history (meta 2 keeps its newest record per
     member: a diet with a LastSync meta), bit-equal to the plain version."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import diet_cols
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     blk = n // cfg.store.cohorts
     ring = diet_cols(x, blk, m, prefix=False)
@@ -692,26 +705,18 @@ def check_diet_store(x: Inputs, reps: int) -> list:
              f"{err})")
     print("kernel store_insert_history_diet_compact: mismatches 0 "
           "(untimed)", flush=True)
-    got = list(kernels.store_insert(ring, sta, mask))
-    kept = int((got[0].view(x.torch.int32) != -1).sum())
-    moved = (8 * blk * m + nbytes(mask) + 8 * int(mask.sum()) + 8 * kept
-             + nbytes(*got))
-    return [timed_entry(
-        "store_insert_diet_compact", "cuda", "dispersy_tpu_torch/csrc/store.cu",
-        "dispersy_tpu/ops/store.py:265", got,
-        [*want.store, want.n_inserted, want.n_dropped, want.n_evicted],
-        lambda: kernels.store_insert(ring, sta, mask),
-        lambda: st.store_insert_plain(ring, sta, mask), moved, reps,
-        kernel="store_insert")]
+    return [k3_row(x, "store_insert_diet_compact", ring, sta, mask,
+                   reps=reps)]
 
 
-def check_diet_compact(x: Inputs, reps: int) -> list:
+def check_diet_compact(x: Draw, reps: int) -> list:
     """K4 at the staggered serve's outbox (a cohort block's [N/4, 48]
     gathered rings to width 8, six columns with the u16 aux), timed; and
     at the forward buffer ([N, 24] to width 4, the aux at u16)."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import diet_cols
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     blk = n // cfg.store.cohorts
     ring = diet_cols(x, blk, m, prefix=False)
@@ -749,7 +754,7 @@ def check_diet_compact(x: Inputs, reps: int) -> list:
         kernel="rank_compact_many")]
 
 
-def check_diet_intake(x: Inputs, reps: int) -> list:
+def check_diet_intake(x: Draw, reps: int) -> list:
     """K5 without a store operand: the in-batch dedup of the [N, 24]
     intake batch (the digest query does the freshness test)."""
     from dispersy_tpu_torch import kernels
@@ -776,7 +781,7 @@ DIET_KERNEL_CHECKS = (check_diet_deliver, check_diet_bloom, check_diet_stage,
 
 # ---- phase 2, the permissioned round's call shapes ---------------------------
 
-def grant_table(x: Inputs, n: int, a: int):
+def grant_table(x: Draw, n: int, a: int):
     """Random [N, A] grant tables: members and global times from small
     ranges (so queries hit, and grant and revoke rows tie), nibble masks
     over the three metas, empty slots."""
@@ -790,7 +795,7 @@ def grant_table(x: Inputs, n: int, a: int):
                             0, 64, size=(n, a)), 0xFFFFFFFF)))
 
 
-def check_timeline(x: Inputs, reps: int) -> list:
+def check_timeline(x: Draw, reps: int) -> list:
     """K8 at the intake batch's [N, 24] queries: ``check`` (u8 metas
     among them out of the nibble range, a founder column) and
     ``check_grant`` (AUTHORIZE bits over the three metas); ``check`` also
@@ -848,87 +853,103 @@ def check_timeline(x: Inputs, reps: int) -> list:
     return rows
 
 
-def replay_store(x: Inputs, n: int, m: int):
-    """A ring of dynamic flips, undo records and user records whose keys
-    collide with the queries (u32 aux, the legacy ring's)."""
-    from dispersy_tpu_torch.ops import store as st
-    np = x.np
-    live = x.rs.random((n, m)) < 0.8
-    meta = np.where(live, x.rs.choice(np.array(
-        [0, 1, 2, 0xF0, 0xF2, 0xF3, 0xF4], np.uint8), size=(n, m)), 255)
-    return st.StoreCols(
-        gt=x.from_u32(np.where(live, x.rs.integers(1, 40, size=(n, m)),
-                               0xFFFFFFFF)),
-        member=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
-                                   0xFFFFFFFF)),
-        meta=x.torch.from_numpy(meta.astype(np.uint8)).to(x.dev),
-        payload=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
-                                    0xFFFFFFFF)),
-        aux=x.u32(n, m, hi=40), flags=x.u8(n, m, hi=2))
-
-
-def check_store_match(x: Inputs, reps: int) -> list:
-    """K9 in each mode at the intake's shapes: the [N, 24] batch queries
+def check_store_match(x: Draw, reps: int) -> list:
+    """K9 in each mode at the intake's shapes -- the [N, 24] batch queries
     against the [N, 48] ring (``flip``, ``undo_marked``, ``meta_of``),
-    and ``undo_hits``'s [N, 48] ring rows against the [N, 24] batch.
-    Bytes: the selecting column (flag, meta or valid) in full, the key
-    and value columns only at the slots it selects, every query, every
-    output."""
+    ``undo_hits``'s [N, 48] ring rows against the [N, 24] batch -- and at
+    the retro pass's [N, 48] vs [N, 48] (``flip``, ``meta_of``,
+    ``undo_marked``).  Bytes (``profiling.k9_bytes``): the selecting
+    column (flag, meta or valid) in full, the key and value columns only
+    at the slots it selects, every query, every output."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.config import (META_DYNAMIC, META_UNDO_OTHER,
-                                           META_UNDO_OWN)
-    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.profiling import (k9_bytes, match_cases,
+                                              replay_store)
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     b = cfg.response_budget + cfg.push_inbox
     stc = replay_store(x, n, m)
-    member, gt = x.u32(n, b, hi=16), x.u32(n, b, hi=40)
-    q_meta = x.u8(n, b, hi=4)
-    flag = stc.meta == META_DYNAMIC
-    valid = x.flags(0.5, n, b)
-    n_flip = int(flag.sum())
-    n_undo = int(((stc.meta == META_UNDO_OWN)
-                  | (stc.meta == META_UNDO_OTHER)).sum())
-    n_user = int((stc.meta < 32).sum())
-    cases = {
-        "flip": ((flag, stc.payload, stc.gt, stc.aux), (q_meta, gt),
-                 lambda: intake.flip_best_batch_plain(
-                     flag, stc.payload, stc.gt, stc.aux, q_meta, gt),
-                 n * m + 12 * n_flip + nbytes(q_meta, gt) + 4 * n * b,
-                 "dispersy_tpu/ops/intake.py:182"),
-        "undo_marked": ((stc.meta, stc.payload, stc.aux), (member, gt),
-                        lambda: intake.undo_marked_plain(stc, member, gt),
-                        n * m + 8 * n_undo + nbytes(member, gt) + n * b,
-                        "dispersy_tpu/ops/intake.py:217"),
-        "meta_of": ((stc.meta, stc.member, stc.gt), (member, gt),
-                    lambda: intake.stored_meta_of_plain(stc, member, gt),
-                    n * m + 8 * n_user + nbytes(member, gt) + 4 * n * b,
-                    "dispersy_tpu/ops/intake.py:293"),
-        "undo_hits": ((valid, member, gt), (stc.member, stc.gt),
-                      lambda: intake.undo_hits_store_plain(stc, member, gt,
-                                                           valid),
-                      n * b + 8 * int(valid.sum()) + 8 * n * m + n * m,
-                      "dispersy_tpu/ops/intake.py:244"),
-    }
+    cases = match_cases(stc, x.u32(n, b, hi=16), x.u32(n, b, hi=40),
+                     x.u8(n, b, hi=4), x.flags(0.5, n, b))
     rows = []
-    for mode, (w_cols, q_cols, plain, moved, replaces) in cases.items():
+    for name, (mode, w_cols, q_cols, plain, replaces) in cases.items():
         got = kernels.store_match(mode, w_cols, q_cols)
         want = plain()
         hit = got.view(torch.int32) != (0 if mode == "flip" else 0xFFFF) \
             if got.dtype == torch.uint32 else got
         if not bool(hit.any()) or bool(hit.all()):
-            fail(f"store_match {mode} inputs give a constant answer")
+            fail(f"store_match {name} inputs give a constant answer")
         rows.append(timed_entry(
-            f"store_match_{mode}", "triton",
-            "dispersy_tpu_torch/kernels/intake_triton.py", replaces, [got],
-            [want],
+            f"store_match_{name}", "cuda", "dispersy_tpu_torch/csrc/match.cu",
+            replaces, [got], [want],
             lambda w_cols=w_cols, q_cols=q_cols, mode=mode:
             kernels.store_match(mode, w_cols, q_cols),
-            plain, moved, reps))
+            plain, k9_bytes(mode, w_cols, q_cols, got), reps,
+            kernel=f"store_match_{mode}"))
     return rows
 
 
-def check_remove(x: Inputs, reps: int) -> list:
+def check_store_match_corners(x: Draw, reps: int) -> list:
+    """K9 on the inputs its selection and its unsigned order branch on,
+    untimed, bit-equal to the plain version (64K rows, every mode at
+    each case): Q = 1, 24 and 48 queries; no entry selected and every
+    entry selected; global times and query times at and above 2^31;
+    ``meta_of`` with several stored rows of one (member, gt)."""
+    np, torch = x.np, x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import META_DYNAMIC, META_UNDO_OWN
+    from dispersy_tpu_torch.profiling import match_cases, replay_store
+    n, m = 1 << 16, x.cfg.msg_capacity
+    big = 1 << 31
+
+    def ring(metas, high=False):
+        stc = replay_store(x, n, m)
+        if metas is not None:
+            stc = stc._replace(meta=torch.full_like(stc.meta, metas))
+        if high:
+            stc = stc._replace(gt=x.from_u32(big + x.rs.integers(
+                -2, 3, size=(n, m))), aux=x.from_u32(big + x.rs.integers(
+                    -2, 3, size=(n, m))))
+        return stc
+
+    def queries(q, high=False):
+        lo = big - 2 if high else 0
+        hi = big + 3 if high else 40
+        return (x.u32(n, q, hi=16), x.from_u32(x.rs.integers(
+            lo, hi, size=(n, q))), x.u8(n, q, hi=4), x.flags(0.5, n, q))
+
+    stores = {"random": ring(None), "none": ring(0xFF),
+              "all_flips": ring(META_DYNAMIC), "all_undo": ring(META_UNDO_OWN),
+              "all_user": ring(1), "high_gt": ring(None, high=True)}
+    dup = ring(None)
+    # Several stored rows of one (member, gt): copy slot 0's keys into
+    # slots 1-5 (the metas stay as drawn).
+    for c in ("member", "gt"):
+        col = getattr(dup, c).view(torch.int32)
+        col[:, 1:6] = col[:, :1]
+    stores["dup_keys"] = dup
+    for sname, stc in stores.items():
+        for q in (1, 24, m):
+            qs = queries(q, high=sname == "high_gt")
+            if sname == "none":
+                qs = (*qs[:3], torch.zeros_like(qs[3]))
+            elif sname.startswith("all"):
+                qs = (*qs[:3], torch.ones_like(qs[3]))
+            for name, (mode, w_cols, q_cols, plain, _) in match_cases(
+                    stc, *qs).items():
+                if name.endswith("_retro") and q != m:
+                    continue
+                err = max_abs_err([kernels.store_match(mode, w_cols,
+                                                       q_cols)], [plain()])
+                if err != 0:
+                    fail(f"kernel store_match {name} corner {sname} Q = {q} "
+                         f"disagrees with its plain version (max abs err "
+                         f"{err})")
+        print(f"kernel store_match corner {sname}: mismatches 0 (untimed, "
+              f"every mode, Q = 1, 24 and {m})", flush=True)
+    return []
+
+
+def check_remove(x: Draw, reps: int) -> list:
     """K10 on the [N, 48] ring with a kill mask.  Bytes: the gt column and
     the mask, the survivors' other five columns (14 B), every output."""
     from dispersy_tpu_torch import kernels
@@ -949,14 +970,11 @@ def check_remove(x: Inputs, reps: int) -> list:
         4 * n * m + nbytes(kill) + 14 * kept + nbytes(*got), reps)]
 
 
-def check_store_history(x: Inputs, reps: int) -> list:
+def check_store_history(x: Draw, reps: int) -> list:
     """K3 with the permissioned config's LastSync history (meta 2 keeps
-    its newest record per member) at the intake merge [N, 48] + [N, 24].
-    Bytes as K3's: the ring keys and metas, the mask, the masked batch
-    keys and metas, the survivors' other columns, every output."""
-    from dispersy_tpu_torch import kernels
+    its newest record per member) at the intake merge [N, 48] + [N, 24]
+    and at the one-record insert [N, 48] + [N, 1]."""
     from dispersy_tpu_torch.ops import store as st
-    n, m = x.cfg.n_peers, x.cfg.msg_capacity
     hist = x.cfg.history
     store, batch = store_inputs(x)
     mask = x.flags(0.6, *batch.gt.shape)
@@ -965,26 +983,22 @@ def check_store_history(x: Inputs, reps: int) -> list:
     if not bool((want.n_evicted + want.n_dropped
                  > plain.n_evicted + plain.n_dropped).any()):
         fail("store_insert history inputs never evict")
-    got = list(kernels.store_insert(store, batch, mask, hist))
-    kept = int((got[0].view(x.torch.int32) != -1).sum())
-    moved = (9 * n * m + nbytes(mask) + 9 * int(mask.sum()) + 9 * kept
-             + nbytes(*got))
-    return [timed_entry(
-        "store_insert_history", "cuda", "dispersy_tpu_torch/csrc/store.cu",
-        "dispersy_tpu/ops/store.py:265", got,
-        [*want.store, want.n_inserted, want.n_dropped, want.n_evicted],
-        lambda: kernels.store_insert(store, batch, mask, hist),
-        lambda: st.store_insert_plain(store, batch, mask, hist), moved,
-        reps)]
+    rows = [k3_row(x, "store_insert_history", store, batch, mask, hist,
+                   reps)]
+    store, batch = store_inputs(x, 1)
+    rows.append(k3_row(x, "store_insert_history_one", store, batch,
+                       x.flags(1 / 64, *batch.gt.shape), hist, reps))
+    return rows
 
 
-PERM_KERNEL_CHECKS = (check_timeline, check_store_match, check_remove,
+PERM_KERNEL_CHECKS = (check_timeline, check_store_match,
+                      check_store_match_corners, check_remove,
                       check_store_history)
 
 
 # ---- phase 2, the hardened round's call shapes -------------------------------
 
-def probe_inputs(x: Inputs, n: int, m: int, b: int):
+def probe_inputs(x: Draw, n: int, m: int, b: int):
     """A ring of user, identity and proof records with empty slots, keys
     from small ranges and values at and above 2^31, and an [N, B] batch
     that copies ring slots (some with the meta, payload or aux changed)
@@ -1019,7 +1033,7 @@ def probe_inputs(x: Inputs, n: int, m: int, b: int):
                  x.from_u32(q[3]), x.from_u32(q[4]))
 
 
-def check_store_probe(x: Inputs, reps: int) -> list:
+def check_store_probe(x: Draw, reps: int) -> list:
     """K11 in each mode at the intake's [N, 24] batch against the [N, 48]
     ring.  Bytes: what the function must read -- every query column and
     the ring's selecting columns in full ((member, gt) for ``conflict``,
@@ -1092,7 +1106,7 @@ HARD_KERNEL_CHECKS = (check_store_probe,)
 
 # ---- phase 2, the chaos round's call shapes ---------------------------------
 
-def push_blast(x: Inputs):
+def push_blast(x: Draw):
     """The chaos round's push blast at 1M: the forward fan-out plus the
     flooders' junk, six columns (u32 aux, the junk flag), a share
     ``P_PUSH`` of valid edges, and the admission class of each meta."""
@@ -1110,7 +1124,7 @@ def push_blast(x: Inputs):
     return e, cols, cls, dst, x.flags(P_PUSH, e)
 
 
-def row_sort_key(x: Inputs, dst, valid, cls, n, shards):
+def row_sort_key(x: Draw, dst, valid, cls, n, shards):
     """The packed (destination, class, position) key of each [S, El] row
     (the source sort's order; one ``torch.sort`` computes it)."""
     torch = x.torch
@@ -1126,7 +1140,7 @@ def row_sort_key(x: Inputs, dst, valid, cls, n, shards):
     return ((key * 256 + c) * el + lpos).reshape(shards, el)
 
 
-def ragged_case(x: Inputs, dst, valid, cols, n, q, shards, budget, cls,
+def ragged_case(x: Draw, dst, valid, cols, n, q, shards, budget, cls,
                 receipts):
     """K12 and its plain version on one edge list: ``(kernel outputs,
     plain outputs)``, inboxes, valid mask, drops, receipts, shed."""
@@ -1140,7 +1154,7 @@ def ragged_case(x: Inputs, dst, valid, cols, n, q, shards, budget, cls,
             [*want.delivery.inbox, *want.delivery[1:], want.shed])
 
 
-def k12_row(x: Inputs, name, dst, valid, cols, n, q, shards, budget, cls,
+def k12_row(x: Draw, name, dst, valid, cols, n, q, shards, budget, cls,
             receipts, got, want, reps) -> dict:
     """A K12 kernels-JSON row: ``got`` held against ``want``, then K12,
     its plain version and ``torch.sort`` of the [S, El] rows' packed
@@ -1168,7 +1182,7 @@ def k12_row(x: Inputs, name, dst, valid, cols, n, q, shards, budget, cls,
         kernel="deliver_ragged")
 
 
-def check_chaos_deliver(x: Inputs, reps: int) -> list:
+def check_chaos_deliver(x: Draw, reps: int) -> list:
     """K12 at the sharded chaos round's 1M shapes, each timed: the capped
     push blast with admission classes and no receipts (its cap binds at
     ``P_PUSH``), the exact 2-column request channel with receipts, which
@@ -1212,7 +1226,7 @@ def check_chaos_deliver(x: Inputs, reps: int) -> list:
     return rows
 
 
-def check_deliver_cls(x: Inputs, reps: int) -> list:
+def check_deliver_cls(x: Draw, reps: int) -> list:
     """K1 with admission classes on the unsharded chaos round's push
     blast (E = N·F·C + the junk, Q = 16; timed)."""
     from dispersy_tpu_torch import kernels
@@ -1234,7 +1248,7 @@ CHAOS_FLAT_KERNEL_CHECKS = (check_deliver_cls,)
 def kernel_phase(cfg, checks, path: str, seed: int, reps: int) -> list:
     """Run ``checks`` on one config's shapes; each row notes the main
     ``path`` whose launch counts it takes."""
-    x = Inputs(cfg, seed)
+    x = inputs(cfg, seed)
     rows = []
     for check in checks:
         for row in check(x, reps):
@@ -1373,6 +1387,13 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     g = state.store_gt.view(torch.int32).long() & 0xFFFFFFFF
     if bool((g[:, 1:] < g[:, :-1]).any()):
         fail(f"{path} main path: a store ring is out of order")
+    # K3's merge-path test: rows whose live records are not sorted by
+    # (gt, member) with EMPTY only as a suffix (expected none).
+    mb = state.store_member.view(torch.int32).long() & 0xFFFFFFFF
+    live = g != 0xFFFFFFFF
+    before = (~live[:, :-1] | (g[:, :-1] > g[:, 1:])
+              | ((g[:, :-1] == g[:, 1:]) & (mb[:, :-1] > mb[:, 1:])))
+    unordered = int((live[:, 1:] & before).any(1).sum())
     hole = state.sta_gt.view(torch.int32) == -1
     if bool((hole[:, :-1] & ~hole[:, 1:]).any()):
         fail(f"{path} main path: a staging buffer has a hole before a record")
@@ -1417,6 +1438,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
            "rounds_per_s": 1e3 / ms, "round_ms": [t * 1e3 for t in times],
            "phases": phases, "peak_mem_gib": peak / 2 ** 30,
            "coverage": cov, "store_fill": snap["store_fill"],
+           "ring_unordered_rows": unordered,
            "walk_success_rate": snap["walk_success_rate"],
            **extra,
            "launches": launches, "launches_per_round": {

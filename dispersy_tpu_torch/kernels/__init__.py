@@ -31,7 +31,7 @@ from dispersy_tpu_torch.exceptions import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("deliver", "bloom", "store", "compact", "stage", "timeline",
-           "remove", "ragged")
+           "remove", "ragged", "match")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,6 +54,8 @@ BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
 STAGE_MAX_SLOTS = 32       # csrc/stage.cu MAX_S
 STORE_MAX_HISTORY = 24     # csrc/store.cu MAX_META
 TIMELINE_MAX_SLOTS = 32    # csrc/timeline.cu MAX_A
+MATCH_MAX_WIDTH = 256      # csrc/match.cu MAX_W (16 B a slot, up to
+                           # 32 rows a block in shared memory)
 
 
 def reset_launches() -> None:
@@ -572,17 +574,21 @@ def dup_earlier(member, gt, ok):
     return out
 
 
-# ---- K9: store match (Triton) -----------------------------------------------
+# ---- K9: store match --------------------------------------------------------
+
+MATCH_MODES = {"flip": 0, "undo_marked": 1, "meta_of": 2, "undo_hits": 3}
+
 
 def store_match(mode: str, w_cols, q_cols):
-    """K9 in ``mode`` (:data:`.intake_triton.MODES`): ``w_cols`` is the
-    row's entries -- a flag (bool) or meta (u8) column, then two u32 key
-    columns and, for ``"flip"``, the u32 aux -- and ``q_cols`` the two
-    u32 (a u8 meta is widened) query columns."""
-    from dispersy_tpu_torch.kernels import intake_triton as it
+    """K9 in ``mode`` (:data:`MATCH_MODES`; csrc/match.cu): ``w_cols`` is
+    the row's entries -- a flag (bool) or meta (u8) column, then two u32
+    key columns and, for ``"flip"``, the u32 aux -- and ``q_cols`` the two
+    query columns, u32 (the first may be a u8 meta, read as bytes).
+    Returns u32 [N, Q] for ``"flip"`` and ``"meta_of"``, bool [N, Q]
+    otherwise."""
     flag, w1, w2, *wv = w_cols
     n, w = w1.shape
-    if mode not in it.MODES:
+    if mode not in MATCH_MODES:
         raise KernelError(f"store_match: unknown mode {mode!r}")
     flag_dt = torch.bool if mode in ("flip", "undo_hits") else torch.uint8
     _req(flag, f"store_match.{mode}.flag", (flag_dt,), (n, w))
@@ -592,16 +598,25 @@ def store_match(mode: str, w_cols, q_cols):
         raise KernelError("store_match: the aux column goes with 'flip' "
                           "only")
     shape = torch.broadcast_shapes(*(c.shape for c in q_cols))
-    if len(shape) != 2 or shape[0] != n or shape[1] < 1 or w < 1:
+    if (len(shape) != 2 or shape[0] != n or shape[1] < 1
+            or not 1 <= w <= MATCH_MAX_WIDTH):
         raise KernelError(f"store_match: queries {tuple(shape)} against "
-                          f"[{n}, {w}]")
-    q1, q2 = (c if c.dtype != torch.uint8 else c.to(torch.int32).view(
-        torch.uint32) for c in q_cols)
-    q1, q2 = (_u32_2d(c, f"store_match.{mode}.q", shape) for c in (q1, q2))
-    flag = flag.view(torch.uint8)
-    out = _intake_launch(f"store_match {mode}", it.MODES[mode], flag, w1,
-                         w2, wv[0] if wv else w1, q1, q2,
-                         fn=it.launch_match)
+                          f"[{n}, {w}] (W at most {MATCH_MAX_WIDTH})")
+    q1, q2 = q_cols
+    q1_u8 = q1.dtype == torch.uint8   # a meta column, read as bytes
+    if q1_u8:
+        _req(q1, f"store_match.{mode}.q[0]", (torch.uint8,), contiguous=False)
+        q1 = q1.expand(shape).contiguous()
+    else:
+        q1 = _u32_2d(q1, f"store_match.{mode}.q[0]", shape)
+    q2 = _u32_2d(q2, f"store_match.{mode}.q[1]", shape)
+    dt = torch.uint32 if mode in ("flip", "meta_of") else torch.bool
+    out = torch.empty(shape, dtype=dt, device=q2.device)
+    err = _fn("match", "dk_store_match", 13)(
+        MATCH_MODES[mode], flag.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        (wv[0] if wv else w1).data_ptr(), q1.data_ptr(), int(q1_u8),
+        q2.data_ptr(), out.data_ptr(), n, w, shape[1], _stream())
+    _check(err, "match", f"store_match {mode}")
     LAUNCHES[f"store_match_{mode}"] += 1
     return out
 

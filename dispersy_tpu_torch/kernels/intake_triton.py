@@ -1,5 +1,5 @@
-"""K5: the intake checks, and K9: the Timeline's store replays, as Triton
-kernels.
+"""K5: the intake checks, and K11: the hardened community's store
+probes, as Triton kernels.
 
 Replaces ``in_store`` (dispersy_tpu/ops/intake.py:80) and ``dup_earlier``
 (:137), whose TPU form is a broadcast compare-reduce over [N, B, M] (the
@@ -20,24 +20,6 @@ batch against the earlier batch entries for ``dup_earlier`` -- and
 reduces each over its last axis.  Only equality is tested, so the u32
 columns are read through their int32 views.
 
-K9 ``store_match`` replaces ``flip_best_batch`` (intake.py:182;
-``flip_best`` :163 is its store-side view), ``undo_marked`` (:217),
-``stored_meta_of`` (:293) and ``undo_hits_store`` (:244) -- the same
-broadcast compare-reduce on the TPU, over the row's W store (or batch)
-entries for each of its Q queries.  One kernel with a ``MODE``
-constexpr: a flag per entry (the flip mask, the undo metas, the user
-metas, the batch's accepted undos), an equality on one key and, on the
-second key, an unsigned ``<=`` (``FLIP``) or an equality; then the max
-of ``gt * 2 | (aux & 1)`` (``FLIP``), any (``UNDO_MARKED``,
-``UNDO_HITS``) or the min of the meta, else 0xFFFF (``META_OF``).
-``UNDO_HITS`` is the transposed view: its queries are the store rows
-and its entries the batch.  Bound on the H100: bytes (three or four
-[N, W] columns and two [N, Q] columns read, one [N, Q] written); the
-design is K5's, one program per block of rows with the [ROWS, Q, W]
-compare in registers.  Unsigned order and the wrapping u32 key are
-taken on int32 bits with the sign bit flipped, so no u32 arithmetic is
-needed in the kernel.
-
 K11 ``store_probe`` replaces the hardened community's three store
 probes -- ``conflict`` (intake.py:104), ``identity_stored`` (:269) and
 ``seq_stored_max`` (:325) -- the same broadcast compare-reduce on the
@@ -47,15 +29,15 @@ columns and five query columns and answers any(live, same (member, gt),
 different (meta, payload, aux)); ``IDENTITY`` any(meta ==
 dispersy-identity, same member) with no gt test; ``SEQ_MAX`` the max of
 the aux over the live rows of the entry's (member, meta), else 0, in
-unsigned order (sign bit flipped, as ``FLIP``).  The u8 metas are
-widened to int32 in registers on both sides.  It is a kernel of its
-own, not more K9 modes: ``conflict`` needs five columns on each side,
-K9 has three and two.  Bound on the H100: bytes (two to five [N, M]
-columns and one to five [N, B] columns read, one [N, B] written).
+unsigned order (taken on int32 bits with the sign bit flipped).  The u8
+metas are widened to int32 in registers on both sides.  It is a kernel
+of its own, not more K9 modes (``csrc/match.cu``): ``conflict`` needs
+five columns on each side, K9 has three and two.  Bound on the H100:
+bytes (two to five [N, M] columns and one to five [N, B] columns read,
+one [N, B] written).
 
-``triton`` is imported inside :func:`launch`, :func:`launch_match` and
-:func:`launch_probe`: the CPU tests import this package on machines
-without it.
+``triton`` is imported inside :func:`launch` and :func:`launch_probe`:
+the CPU tests import this package on machines without it.
 """
 
 from __future__ import annotations
@@ -65,10 +47,6 @@ import os
 import torch
 
 _KERNEL: dict = {}   # the jitted kernels, made on first launch
-# K9 modes.
-FLIP, UNDO_MARKED, META_OF, UNDO_HITS = 0, 1, 2, 3
-MODES = {"flip": FLIP, "undo_marked": UNDO_MARKED, "meta_of": META_OF,
-         "undo_hits": UNDO_HITS}
 # K11 modes.
 CONFLICT, IDENTITY, SEQ_MAX = 0, 1, 2
 PROBE_MODES = {"conflict": CONFLICT, "identity": IDENTITY, "seq_max": SEQ_MAX}
@@ -144,88 +122,6 @@ def launch(store_gt, store_member, member, gt, ok):
         n, M=max(m, 1), B=b, MP=mp, BP=bp, ROWS=rows, HAS_STORE=has_store,
         num_warps=4)
     return (in_store, dup) if has_store else dup
-
-
-def _match_kernel():
-    if "match" in _KERNEL:
-        return _KERNEL["match"]
-    from dispersy_tpu_torch.kernels import BUILD
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def dk_store_match_kernel(wf_ptr, w1_ptr, w2_ptr, wv_ptr, q1_ptr, q2_ptr,
-                              out_ptr, n, W: tl.constexpr, Q: tl.constexpr,
-                              WP: tl.constexpr, QP: tl.constexpr,
-                              ROWS: tl.constexpr, MODE: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        r2 = rows.to(tl.int64)[:, None]
-        qi = tl.arange(0, QP)
-        wi = tl.arange(0, WP)
-        qmask = (rows[:, None] < n) & (qi[None, :] < Q)          # [R, QP]
-        wmask = (rows[:, None] < n) & (wi[None, :] < W)          # [R, WP]
-        q1 = tl.load(q1_ptr + r2 * Q + qi[None, :], mask=qmask, other=0)
-        q2 = tl.load(q2_ptr + r2 * Q + qi[None, :], mask=qmask, other=0)
-        wat = r2 * W + wi[None, :]
-        wf = tl.load(wf_ptr + wat, mask=wmask, other=0).to(tl.int32)
-        w1 = tl.load(w1_ptr + wat, mask=wmask, other=0)
-        w2 = tl.load(w2_ptr + wat, mask=wmask, other=0)
-        sign = -2147483648
-        if MODE == 1:           # UNDO_MARKED: dispersy-undo-own / -other
-            ok = (wf == 0xF2) | (wf == 0xF3)
-        elif MODE == 2:         # META_OF: user records
-            ok = wf < 32
-        else:                   # FLIP, UNDO_HITS: the flag itself
-            ok = wf != 0
-        ok = ok & wmask
-        hit = ok[:, None, :] & (w1[:, None, :] == q1[:, :, None])
-        if MODE == 0:           # gt <= q_gt, unsigned
-            hit = hit & ((w2 ^ sign)[:, None, :] <= (q2 ^ sign)[:, :, None])
-        else:
-            hit = hit & (w2[:, None, :] == q2[:, :, None])
-        out = r2 * Q + qi[None, :]
-        if MODE == 0:
-            wv = tl.load(wv_ptr + wat, mask=wmask, other=0)
-            key = ((w2 << 1) | (wv & 1)) ^ sign   # u32 order on int32
-            best = tl.max(tl.where(hit, key[:, None, :], sign), axis=2)
-            tl.store(out_ptr + out, best ^ sign, mask=qmask)
-        elif MODE == 2:
-            best = tl.min(tl.where(hit, wf[:, None, :], 0xFFFF), axis=2)
-            tl.store(out_ptr + out, best, mask=qmask)
-        else:
-            anyhit = tl.max(hit.to(tl.int32), axis=2)
-            tl.store(out_ptr + out, anyhit.to(tl.int8), mask=qmask)
-
-    _KERNEL["match"] = dk_store_match_kernel
-    return dk_store_match_kernel
-
-
-def launch_match(mode: int, flag, w1, w2, wv, q1, q2):
-    """K9 in ``mode``: ``flag`` u8 [N, W] (a bool mask's bytes or the
-    meta column), ``w1``/``w2``/``wv`` u32 [N, W], ``q1``/``q2`` u32
-    [N, Q] (``wv`` is read by ``FLIP`` only).  Returns u32 [N, Q] for
-    ``FLIP`` and ``META_OF``, bool [N, Q] otherwise.  The caller
-    (:func:`dispersy_tpu_torch.kernels.store_match`) has checked the
-    inputs."""
-    n, q = q1.shape
-    w = w1.shape[1]
-    wp, qp = _pow2(w), _pow2(q)
-    rows = max(1, min(16, 8192 // (qp * wp)))
-    rows = 1 << (rows.bit_length() - 1)
-    if mode in (FLIP, META_OF):
-        out = torch.empty((n, q), dtype=torch.uint32, device=q1.device)
-        out_bits = out.view(torch.int32)
-    else:
-        out = torch.empty((n, q), dtype=torch.bool, device=q1.device)
-        out_bits = out.view(torch.int8)
-    grid = ((n + rows - 1) // rows,)
-    _match_kernel()[grid](
-        flag, w1.view(torch.int32), w2.view(torch.int32),
-        wv.view(torch.int32), q1.view(torch.int32), q2.view(torch.int32),
-        out_bits, n, W=w, Q=q, WP=wp, QP=qp, ROWS=rows, MODE=mode,
-        num_warps=4)
-    return out
 
 
 def _probe_kernel():

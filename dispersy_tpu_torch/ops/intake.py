@@ -13,10 +13,10 @@ forms beside it.  :func:`dup_earlier` is the same kernel in its mode
 without a store operand: under the byte-diet store the "already stored?"
 test is a digest query, so a quiet round reads no ring bytes.  Only
 equality is tested, so u32 columns are compared through their int32 bit
-views.  The replays below share one Triton kernel (K9 ``store_match``)
-in four modes, and the hardened community's three store probes --
-double-sign evidence, the identity gate and the sequence-chain base --
-another (K11 ``store_probe``) in three.
+views.  The replays below share one CUDA kernel (K9 ``store_match``,
+``csrc/match.cu``) in four modes, and the hardened community's three
+store probes -- double-sign evidence, the identity gate and the
+sequence-chain base -- a Triton kernel (K11 ``store_probe``) in three.
 """
 
 from __future__ import annotations
@@ -68,8 +68,8 @@ def dup_earlier(member, gt, ok) -> torch.Tensor:
 # ---- the Timeline's store replays (K9 store_match) -------------------------
 # Each is one compare-and-reduce pass per row: the queries [N, Q] against
 # the row's W store (or batch) entries.  On a CUDA tensor every one goes
-# through the Triton kernel of ``kernels/intake_triton.py`` in its MODE;
-# on a CPU tensor through the plain broadcast form beside it.
+# through the CUDA kernel of ``csrc/match.cu`` in its mode; on a CPU
+# tensor through the plain broadcast form beside it.
 
 def flip_best_batch_plain(flip_ok, payload, gt, aux, q_meta,
                           q_gt) -> torch.Tensor:

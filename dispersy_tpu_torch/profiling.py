@@ -9,6 +9,7 @@ helpers price XLA executables and have no counterpart here.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -17,7 +18,8 @@ from dispersy_tpu_torch.config import (DEFAULT_PRIORITY, EMPTY_U32,
                                        META_AUTHORIZE, META_DESTROY,
                                        META_DYNAMIC, META_IDENTITY,
                                        META_REVOKE, META_UNDO_OTHER,
-                                       CommunityConfig, perm_bit)
+                                       META_UNDO_OWN, CommunityConfig,
+                                       perm_bit)
 from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
                                        StoreConfig)
@@ -564,6 +566,40 @@ def delivery_cases(n_peers: int = 1 << 20, seed: int = 0) -> dict:
     return cases
 
 
+def _flat(out) -> list:
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def _same(a, b) -> bool:
+    """Bit-equal outputs (tensors or nested tuples of them)."""
+    import torch
+    a, b = _flat(a), _flat(b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median ms of ``reps`` calls of ``fn``, each between its own pair of
+    CUDA events, after 3 warm-up calls."""
+    import statistics
+
+    import torch
+    for _ in range(3):
+        fn()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
 def profile_delivery(n_peers: int = 1 << 20, reps: int = 20,
                      seed: int = 0) -> dict:
     """Each of :func:`delivery_cases` on the card: the kernel held bit
@@ -574,44 +610,19 @@ def profile_delivery(n_peers: int = 1 << 20, reps: int = 20,
     and memset of the call, and the device events per call (launches and
     memsets).  ``python -m dispersy_tpu_torch.profiling --delivery``
     prints it as one JSON line."""
-    import statistics
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def flat(out):
-        if isinstance(out, torch.Tensor):
-            return [out]
-        return [t for o in out for t in flat(o)]
-
-    def same(a, b):
-        a, b = flat(a), flat(b)
-        return len(a) == len(b) and all(
-            x.shape == y.shape and x.dtype == y.dtype and torch.equal(
-                x.view(torch.uint8), y.view(torch.uint8))
-            for x, y in zip(a, b))
-
-    def cuda_ms(fn):
-        for _ in range(3):
-            fn()
-        evs = [(torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        for a, b in evs:
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in evs)
 
     out = {"n_peers": n_peers, "reps": reps,
            "device": torch.cuda.get_device_name(0), "cases": {}}
     for name, (kernel, plain, yardstick) in delivery_cases(
             n_peers, seed).items():
-        if not same(kernel(), plain()):
+        if not _same(kernel(), plain()):
             raise AssertionError(f"{name}: the kernel differs from its "
                                  "plain version")
-        row = {"kernel_ms": cuda_ms(kernel), "sort_ms": cuda_ms(yardstick)}
+        row = {"kernel_ms": cuda_ms(kernel, reps),
+               "sort_ms": cuda_ms(yardstick, reps)}
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -636,6 +647,341 @@ def profile_delivery(n_peers: int = 1 << 20, reps: int = 20,
     return out
 
 
+class Draw:
+    """Random inputs made with a numpy seed, on ``dev`` (the u32 and u16
+    columns through their signed views)."""
+
+    def __init__(self, seed: int, dev):
+        import torch
+        self.torch = torch
+        self.np = np
+        self.rs = np.random.default_rng(seed)
+        self.dev = torch.device(dev)
+
+    def from_u32(self, a):
+        a = np.asarray(a).astype(np.uint32).view(np.int32)
+        return self.torch.from_numpy(a).to(self.dev).view(self.torch.uint32)
+
+    def u32(self, *shape, hi=1 << 32):
+        return self.from_u32(self.rs.integers(0, hi, size=shape,
+                                              dtype=np.uint64))
+
+    def u16(self, *shape, hi=1 << 16):
+        a = self.rs.integers(0, hi, size=shape).astype(np.uint16)
+        return self.torch.from_numpy(a.view(np.int16)).to(self.dev).view(
+            self.torch.uint16)
+
+    def u8(self, *shape, hi=256):
+        a = self.rs.integers(0, hi, size=shape).astype(np.uint8)
+        return self.torch.from_numpy(a).to(self.dev)
+
+    def flags(self, p, *shape):
+        return self.torch.from_numpy(self.rs.random(shape) < p).to(self.dev)
+
+
+def store_inputs(x, n: int, m: int, b: int):
+    """Sorted [n, m] rings with a random fill and an [n, b] batch, keys
+    drawn from a small range so that duplicates against the ring and
+    inside the batch are common (u32 aux, metas 0-3).  ``x`` draws
+    (:class:`Draw`, or ``chip_smoke.Inputs``)."""
+    from dispersy_tpu_torch.ops import store as st
+    torch = x.torch
+    g = x.rs.integers(1, 200, size=(n, m))
+    mem = x.rs.integers(0, 6, size=(n, m))
+    order = np.lexsort((mem, g), axis=1)
+    live = np.arange(m)[None, :] < x.rs.integers(0, m + 1, size=n)[:, None]
+    store = st.StoreCols(
+        gt=x.from_u32(np.where(live, np.take_along_axis(g, order, 1),
+                               EMPTY_U32)),
+        member=x.from_u32(np.where(live, np.take_along_axis(mem, order, 1),
+                                   EMPTY_U32)),
+        meta=torch.where(torch.from_numpy(live).to(x.dev),
+                         x.u8(n, m, hi=4), 255).to(torch.uint8),
+        payload=x.u32(n, m), aux=x.u32(n, m, hi=3), flags=x.u8(n, m, hi=2))
+    batch = st.StoreCols(
+        gt=x.u32(n, b, hi=200), member=x.u32(n, b, hi=6),
+        meta=x.u8(n, b, hi=4), payload=x.u32(n, b), aux=x.u32(n, b, hi=3),
+        flags=x.u8(n, b, hi=2))
+    return store, batch
+
+
+def diet_cols(x, rows: int, width: int, prefix: bool):
+    """Record columns with a u16 aux: a sorted ring (``prefix`` False) or
+    a staging buffer with a valid prefix of random length."""
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.u32 import cast
+    torch = x.torch
+    g = x.rs.integers(1, 200, size=(rows, width))
+    mem = x.rs.integers(0, 6, size=(rows, width))
+    if not prefix:
+        order = np.lexsort((mem, g), axis=1)
+        g = np.take_along_axis(g, order, 1)
+        mem = np.take_along_axis(mem, order, 1)
+    live = (np.arange(width)[None, :]
+            < x.rs.integers(0, width + 1, size=rows)[:, None])
+    tl = torch.from_numpy(live).to(x.dev)
+    return st.StoreCols(
+        gt=x.from_u32(np.where(live, g, EMPTY_U32)),
+        member=x.from_u32(np.where(live, mem, EMPTY_U32)),
+        meta=torch.where(tl, x.u8(rows, width, hi=4), 255).to(torch.uint8),
+        payload=x.from_u32(np.where(live, x.rs.integers(
+            0, 1 << 32, size=(rows, width), dtype=np.uint64), EMPTY_U32)),
+        aux=cast(torch.where(tl, x.u32(rows, width, hi=3).view(
+            torch.int32), 0).view(torch.uint32), torch.uint16),
+        flags=torch.where(tl, x.u8(rows, width, hi=2), 0).to(torch.uint8))
+
+
+def replay_store(x, n: int, m: int):
+    """A ring of dynamic flips, undo records and user records whose keys
+    collide with the queries (u32 aux, the legacy ring's)."""
+    from dispersy_tpu_torch.ops import store as st
+    live = x.rs.random((n, m)) < 0.8
+    meta = np.where(live, x.rs.choice(np.array(
+        [0, 1, 2, 0xF0, 0xF2, 0xF3, 0xF4], np.uint8), size=(n, m)), 255)
+    return st.StoreCols(
+        gt=x.from_u32(np.where(live, x.rs.integers(1, 40, size=(n, m)),
+                               EMPTY_U32)),
+        member=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
+                                   EMPTY_U32)),
+        meta=x.torch.from_numpy(meta.astype(np.uint8)).to(x.dev),
+        payload=x.from_u32(np.where(live, x.rs.integers(0, 16, size=(n, m)),
+                                    EMPTY_U32)),
+        aux=x.u32(n, m, hi=40), flags=x.u8(n, m, hi=2))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k3_bytes(store, mask, got, history: tuple = ()) -> int:
+    """The bytes K3 must move on these inputs: the ring's keys (with a
+    history, its metas too) and the mask in full, the same columns of the
+    batch under the mask, the other columns of the records that survive
+    only, and every output."""
+    import torch
+    n, m = store.gt.shape
+    h = 1 if any(k > 0 for k in history) else 0
+    kept = int((got[0].view(torch.int32) != -1).sum())
+    other = 6 + store.aux.element_size() - h
+    return ((8 + h) * n * m + _nbytes(mask) + (8 + h) * int(mask.sum())
+            + other * kept + _nbytes(*got))
+
+
+def k9_selected(mode: str, flag) -> int:
+    """How many entries K9's selecting column picks in ``mode``."""
+    if mode == "undo_marked":
+        return int(((flag == META_UNDO_OWN) | (flag == META_UNDO_OTHER)).sum())
+    if mode == "meta_of":
+        return int((flag < 32).sum())
+    return int(flag.sum())
+
+
+def k9_bytes(mode: str, w_cols, q_cols, out) -> int:
+    """The bytes K9 must move: the selecting column (flag, meta or valid)
+    in full, the key and value columns only at the slots it selects, the
+    queries (as given, before any broadcast) and the output."""
+    per = 4 * (len(w_cols) - 1)
+    return (w_cols[0].numel() + per * k9_selected(mode, w_cols[0])
+            + _nbytes(*q_cols) + _nbytes(out))
+
+
+def match_cases(stc, member, gt, q_meta, valid) -> dict:
+    """K9's modes on one ring: ``{name: (mode, w_cols, q_cols, plain,
+    replaces)}`` at the intake's shapes (the [N, Q] batch queries against
+    the ring; ``undo_hits``'s ring rows against the batch) and at the
+    retro pass's (the ring's own rows as the queries)."""
+    from dispersy_tpu_torch.ops import intake
+    flag = stc.meta == META_DYNAMIC
+    flip_w = (flag, stc.payload, stc.gt, stc.aux)
+    return {
+        "flip": ("flip", flip_w, (q_meta, gt),
+                 lambda: intake.flip_best_batch_plain(*flip_w, q_meta, gt),
+                 "dispersy_tpu/ops/intake.py:182"),
+        "undo_marked": ("undo_marked", (stc.meta, stc.payload, stc.aux),
+                        (member, gt),
+                        lambda: intake.undo_marked_plain(stc, member, gt),
+                        "dispersy_tpu/ops/intake.py:217"),
+        "meta_of": ("meta_of", (stc.meta, stc.member, stc.gt), (member, gt),
+                    lambda: intake.stored_meta_of_plain(stc, member, gt),
+                    "dispersy_tpu/ops/intake.py:293"),
+        "undo_hits": ("undo_hits", (valid, member, gt),
+                      (stc.member, stc.gt),
+                      lambda: intake.undo_hits_store_plain(stc, member, gt,
+                                                           valid),
+                      "dispersy_tpu/ops/intake.py:244"),
+        "flip_retro": ("flip", flip_w, (stc.meta, stc.gt),
+                       lambda: intake.flip_best_batch_plain(
+                           *flip_w, stc.meta, stc.gt),
+                       "dispersy_tpu/ops/intake.py:163"),
+        "meta_of_retro": ("meta_of", (stc.meta, stc.member, stc.gt),
+                          (stc.payload, stc.aux),
+                          lambda: intake.stored_meta_of_plain(
+                              stc, stc.payload, stc.aux),
+                          "dispersy_tpu/ops/intake.py:293"),
+        "undo_marked_retro": ("undo_marked",
+                              (stc.meta, stc.payload, stc.aux),
+                              (stc.member, stc.gt),
+                              lambda: intake.undo_marked_plain(
+                                  stc, stc.member, stc.gt),
+                              "dispersy_tpu/ops/intake.py:217")}
+
+
+def k3_yardstick(store, new, mask):
+    """One stable ``torch.sort`` of the packed (gt, member) key over the
+    [N, M + B] ring ++ masked batch: the ordering step of K3's sort form
+    as one PyTorch call.  Returns a function of no argument."""
+    import torch
+
+    from dispersy_tpu_torch.u32 import wide
+    gt = torch.cat([wide(store.gt), torch.where(mask, wide(new.gt),
+                                                EMPTY_U32)], 1)
+    mb = torch.cat([wide(store.member), torch.where(mask, wide(new.member),
+                                                    EMPTY_U32)], 1)
+    key = ((gt << 32) | mb) ^ (-(1 << 63))   # u64 order on int64
+    return lambda: torch.sort(key, dim=1, stable=True)
+
+
+def store_cases(n_peers: int = 1 << 20, seed: int = 0,
+                dev="cuda") -> dict:
+    """K3's and K9's call shapes in the rounds at ``n_peers`` peers, on
+    random inputs made with a numpy seed: ``{name: (kernel, plain,
+    yardstick or None, bytes, launches key)}``, the first three functions
+    of no argument."""
+    import torch
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.ops import store as st
+
+    x = Draw(seed, dev)
+    leg, perm = slice_config(n_peers), permissioned_config(n_peers)
+    n, m = n_peers, leg.msg_capacity
+    b = leg.response_budget + leg.push_inbox
+    hist = perm.history
+    cases = {}
+
+    def k3(name, store, new, mask, history=()):
+        new = st.as_store_dtypes(new, store)
+        want = st.store_insert_plain(store, new, mask, history)
+        cases[name] = (
+            lambda: kernels.store_insert(store, new, mask, history),
+            lambda: st.store_insert_plain(store, new, mask, history),
+            k3_yardstick(store, new, mask),
+            k3_bytes(store, mask, [*want.store, *want[1:]], history),
+            "store_insert_history" if history else "store_insert")
+
+    store, batch = store_inputs(x, n, m, b)
+    mask = x.flags(0.6, n, b)
+    k3("insert_intake", store, batch, mask)
+    k3("insert_intake_history", store, batch, mask, hist)
+    ring = diet_cols(x, n, m, prefix=False)
+    sta = diet_cols(x, n, 8, prefix=True)
+    k3("insert_staging_u16", ring, sta, sta.valid)
+    blk = n // 4
+    ring = diet_cols(x, blk, m, prefix=False)
+    sta = diet_cols(x, blk, 8, prefix=True)
+    k3("insert_cohort_u16", ring, sta, sta.valid)
+    one, one_b = store_inputs(x, n, m, 1)
+    k3("insert_one", one, one_b, x.flags(0.02, n, 1))
+    k3("insert_one_history", one, one_b, x.flags(0.02, n, 1), hist)
+
+    def k9(name, mode, w_cols, q_cols, plain):
+        out = plain()
+        cases[name] = (lambda: kernels.store_match(mode, w_cols, q_cols),
+                       plain, None, k9_bytes(mode, w_cols, q_cols, out),
+                       f"store_match_{mode}")
+
+    stc = replay_store(x, n, m)
+    q_meta, gt = x.u8(n, b, hi=4), x.u32(n, b, hi=40)
+    for name, (mode, w_cols, q_cols, plain, _) in match_cases(
+            stc, x.u32(n, b, hi=16), gt, q_meta, x.flags(0.5, n, b)).items():
+        k9(name, mode, w_cols, q_cols, plain)
+    bstc = replay_store(x, n, b)
+    bflag = bstc.meta == META_DYNAMIC
+    k9("flip_batch", "flip", (bflag, bstc.payload, bstc.gt, bstc.aux),
+       (q_meta, gt), lambda: intake.flip_best_batch_plain(
+           bflag, bstc.payload, bstc.gt, bstc.aux, q_meta, gt))
+    # engine._author_linear: one meta for every row, at each row's gt.
+    flag = stc.meta == META_DYNAMIC
+    q1 = x.from_u32([[1]]).expand(n, 1)
+    g1 = x.u32(n, 1, hi=40)
+    k9("flip_q1", "flip", (flag, stc.payload, stc.gt, stc.aux), (q1, g1),
+       lambda: intake.flip_best_batch_plain(flag, stc.payload, stc.gt,
+                                            stc.aux, q1, g1))
+    return cases
+
+
+def profile_store(n_peers: int = 1 << 20, reps: int = 20,
+                  seed: int = 0) -> dict:
+    """Each of :func:`store_cases` on the card: the kernel held bit for
+    bit against its plain version, then the kernel (``reps`` launches),
+    K3's ``torch.sort`` yardstick (``reps``) and the plain version (5)
+    timed with CUDA events (medians), beside the bytes bound at 3.35
+    TB/s.  ``python -m dispersy_tpu_torch.profiling --store`` prints it
+    as one JSON line."""
+    import subprocess
+
+    import torch
+
+    from dispersy_tpu_torch import kernels
+
+    kernels.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    out = {"n_peers": n_peers, "reps": reps, "card": card,
+           "device": torch.cuda.get_device_name(0),
+           "kernels": str(Path(kernels.__file__).resolve().parent),
+           "cases": {}}
+    for name, (kernel, plain, yardstick, moved, key) in store_cases(
+            n_peers, seed).items():
+        if not _same(kernel(), plain()):
+            raise AssertionError(f"{name}: the kernel differs from its "
+                                 "plain version")
+        out["cases"][name] = {
+            "kernel": key, "kernel_ms": cuda_ms(kernel, reps),
+            "library_ms": cuda_ms(yardstick, reps) if yardstick else None,
+            "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": moved / 3.35e12 * 1e3}
+        torch.cuda.synchronize()
+    return out
+
+
+def profile_store_roots(roots: list) -> list:
+    """:func:`profile_store` once for each checkout in ``roots``, in turn,
+    each in a process of its own whose ``dispersy_tpu_torch`` is the
+    checkout's (this file's cases on that checkout's kernels and plain
+    versions; say the parent commit unpacked with ``git archive`` into a
+    git-ignored directory, in the order parent, this, this, parent)."""
+    import json
+    import subprocess
+    import sys
+    runs = []
+    for root in roots:
+        root = str(Path(root).resolve())
+        code = ("import importlib.util, json, sys; sys.path.insert(0, {r!r}); "
+                "spec = importlib.util.spec_from_file_location("
+                "'store_profile', {f!r}); mod = "
+                "importlib.util.module_from_spec(spec); "
+                "spec.loader.exec_module(mod); "
+                "print('STORE ' + json.dumps(mod.profile_store()))").format(
+                    r=root, f=str(Path(__file__).resolve()))
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("STORE ")]
+        if proc.returncode or not lines:
+            raise RuntimeError(f"profile_store on {root} failed:\n"
+                               f"{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        run = json.loads(lines[0][6:])
+        if not run["kernels"].startswith(root):
+            raise RuntimeError(f"ran {run['kernels']}, not from {root}")
+        run["root"] = root
+        runs.append(run)
+    return runs
+
 if __name__ == "__main__":
     import argparse
     import json
@@ -644,6 +990,10 @@ if __name__ == "__main__":
     which.add_argument("--delivery", action="store_true",
                        help="time and trace K1 and K12 at each call shape "
                        "of the 1M rounds (profile_delivery)")
+    which.add_argument("--store", nargs="*", metavar="ROOT",
+                       help="time K3 and K9 at each call shape of the 1M "
+                       "rounds (profile_store); with checkout ROOTs, once "
+                       "on each in turn")
     which.add_argument("--diet", action="store_true",
                        help="trace the byte-diet round of bench_config")
     which.add_argument("--timeline", action="store_true",
@@ -656,6 +1006,12 @@ if __name__ == "__main__":
     args = ap.parse_args()
     if args.delivery:
         print(json.dumps(profile_delivery()))
+        raise SystemExit(0)
+    if args.store is not None:
+        runs = (profile_store_roots(args.store) if args.store
+                else [profile_store()])
+        for run in runs:
+            print(json.dumps(run), flush=True)
         raise SystemExit(0)
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
                                     hardened=args.hardened, chaos=args.chaos,

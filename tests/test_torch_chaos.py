@@ -50,7 +50,8 @@ from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
                                        StoreConfig)
 
-from test_torch_ops import same, to_np, to_t, u32
+from test_torch_ops import (ref, release_xla_executables,  # noqa: F401
+                            same, to_np, to_t, u32)
 from test_torch_step import same_snapshot
 
 _JAX_PLANES = {"StoreConfig": storediet.StoreConfig,
@@ -244,10 +245,10 @@ def run_pair(pc, rounds, seed, spies=None):
     one record first), every leaf held equal after each round.  Returns
     the port's state and the largest health OR seen."""
     jc = to_jax(pc)
-    js = jstate.init_state(jc, jax.random.PRNGKey(seed))
+    js = ref(jstate.init_state, jc, jax.random.PRNGKey(seed))
     ps = init_state(pc, seed, device="cpu")
     assert_states_equal(ps, js, "init_state")
-    js = jeng.seed_overlay(js, jc, degree=4)
+    js = ref(jeng.seed_overlay, js, jc, degree=4)
     ps = engine.seed_overlay(ps, pc, 4)
     n = pc.n_peers
     authors = np.arange(n) % 16 == 5

@@ -23,6 +23,11 @@ from dispersy_tpu_torch.bridge import (assert_states_equal, state_from_numpy,
 from dispersy_tpu_torch.exceptions import ConfigError
 from dispersy_tpu_torch.state import init_state
 
+# One torch thread, as in test_torch_ops.
+torch.set_num_threads(1)
+
+from test_torch_ops import release_xla_executables  # noqa: E402,F401
+
 PAIRS = [
     (jconfig.CommunityConfig, pconfig.CommunityConfig),
     (storediet.StoreConfig, planes.StoreConfig),

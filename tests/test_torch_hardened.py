@@ -32,7 +32,8 @@ from dispersy_tpu_torch.config import META_IDENTITY, META_MALICIOUS
 from dispersy_tpu_torch.ops import intake
 from dispersy_tpu_torch.ops import store as st
 from dispersy_tpu_torch.ops import timeline as tl
-from test_torch_ops import same, to_np, to_t
+from test_torch_ops import (ref, release_xla_executables,  # noqa: F401
+                            same, to_np, to_t)
 from test_torch_step import jax_config, run_both
 from test_torch_timeline import jitted
 
@@ -150,7 +151,7 @@ def test_fold_set_equals_jax(n, s, b, fill):
 
 def pair(pc, seed=3):
     jc = jax_config(pc)
-    return (jc, jstate.init_state(jc, jax.random.PRNGKey(seed)),
+    return (jc, ref(jstate.init_state, jc, jax.random.PRNGKey(seed)),
             init_state(pc, seed, device="cpu"))
 
 

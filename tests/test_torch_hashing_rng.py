@@ -15,6 +15,11 @@ from dispersy_tpu_torch.ops import hashing as ph
 from dispersy_tpu_torch.ops import rng as pr
 from dispersy_tpu_torch.u32 import narrow
 
+# One torch thread, as in test_torch_ops.
+torch.set_num_threads(1)
+
+from test_torch_ops import release_xla_executables  # noqa: E402,F401
+
 PURPOSES = [getattr(jr, n) for n in dir(jr) if n.startswith("P_")]
 
 

@@ -11,7 +11,10 @@ columns, per-row Bloom salts, the store-less dedup, cohort blocks) have
 cases of their own at the end.
 """
 
+import gc
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -30,7 +33,46 @@ from dispersy_tpu_torch.ops import bloom, inbox, intake, rng
 from dispersy_tpu_torch.ops import candidates as cand
 from dispersy_tpu_torch.ops import store as st
 
+# One torch thread: the cases are small, and under pytest-xdist each
+# worker's OpenMP pool (a thread a core by default) would take the cores
+# the other workers' XLA compiles need.
+torch.set_num_threads(1)
+
 U32_MAX = 0xFFFFFFFF
+
+
+def _count_lines(path: str) -> int:
+    try:
+        with open(path) as f:
+            return sum(1 for _ in f)
+    except OSError:             # no procfs: nothing to count
+        return 0
+
+
+def _map_limit() -> int:
+    try:
+        with open("/proc/sys/vm/max_map_count") as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        return 0
+
+
+@pytest.fixture(autouse=True)
+def release_xla_executables():
+    """Free the process's compiled XLA executables before a port test
+    once it holds more than half the kernel's memory-map limit.  Every
+    executable XLA:CPU loads keeps its own mappings until its cache entry
+    goes, and a pytest-xdist worker that has run a few hundred of the
+    suite's tests holds over 60,000 of Linux's default 65,530: the next
+    compile then fails to map and the worker dies with a segfault.  The
+    port's files run late in a worker's life, so they give the room back
+    (any test after them recompiles what it needs).  Imported by every
+    port test file."""
+    limit = _map_limit()
+    if limit and _count_lines("/proc/self/maps") > limit // 2:
+        jax.clear_caches()
+        gc.collect()
+    yield
 
 
 # ---- numpy <-> both packages ----------------------------------------------
@@ -61,6 +103,24 @@ def same(got, want) -> None:
         assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype,
                                                           g.shape, w.shape)
         np.testing.assert_array_equal(g, w)
+
+
+def ref(fn, *args, **kw):
+    """``fn(*args, **kw)`` of the JAX package compiled as one program:
+    the array leaves of the arguments are traced, every other leaf (a
+    width, a mode, a config) is bound as it is.  One XLA compile per call
+    instead of one per primitive of the eager form; the closure is new on
+    every call, so each call traces ``fn`` afresh (a monkeypatched form
+    included) and reuses no earlier compile."""
+    leaves, tree = jax.tree.flatten((args, kw))
+    traced = [isinstance(x, (jax.Array, np.ndarray)) for x in leaves]
+
+    def run(*arrays):
+        it = iter(arrays)
+        a, k = jax.tree.unflatten(tree, [next(it) if t else x
+                                         for x, t in zip(leaves, traced)])
+        return fn(*a, **k)
+    return jax.jit(run)(*(x for x, t in zip(leaves, traced) if t))
 
 
 def u32(rs, *shape, hi=1 << 32):
@@ -115,8 +175,7 @@ def test_deliver(e, n, q, w, p, groups):
             rs.random(e) < 0.5]
     if w:
         cols.append(u32(rs, e, w))
-    want = jinbox.deliver(jnp.asarray(dst), [jnp.asarray(c) for c in cols],
-                          jnp.asarray(valid), n, q)
+    want = ref(jinbox.deliver, dst, cols, valid, n, q)
     got = inbox.deliver(to_t(dst), [to_t(c) for c in cols], to_t(valid), n,
                         q)
     same(got.inbox, want.inbox)
@@ -147,20 +206,19 @@ def test_bloom_build_query_probes(n, m, w, k, salted):
     js = jnp.uint32(salt_np) if salted else None
     ps = to_t(np.array(salt_np)) if salted else None
     same([bloom.probe_bits(to_t(h), bits, k, ps).to(torch.int32)],
-         [jbloom.probe_bits(jnp.asarray(h), bits, k, js)])
+         [ref(jbloom.probe_bits, h, bits, k, js)])
     words = bloom.bloom_build(to_t(h), to_t(mask), bits, k, salt=ps)
     for impl in ("gather", "compare"):
-        same([words], [jbloom.bloom_build(jnp.asarray(h), jnp.asarray(mask),
-                                          bits, k, impl=impl, salt=js)])
+        same([words], [ref(jbloom.bloom_build, h, mask, bits, k, impl=impl,
+                           salt=js)])
     q = np.where(rs.random((n, m)) < 0.5, h, u32(rs, n, m))
     got = bloom.bloom_query(words, to_t(q), bits, k, salt=ps)
     for impl in ("gather", "compare"):
-        same([got], [jbloom.bloom_query(jnp.asarray(to_np(words)),
-                                        jnp.asarray(q), bits, k, impl=impl,
-                                        salt=js)])
+        same([got], [ref(jbloom.bloom_query, to_np(words), q, bits, k,
+                         impl=impl, salt=js)])
     dense = rs.random((n, bits)) < 0.3
     same([bloom.pack_bits(to_t(dense))],
-         [jbloom.pack_bits(jnp.asarray(dense)).reshape(n, w)])
+         [ref(jbloom.pack_bits, dense).reshape(n, w)])
     same([bloom.unpack_bits(bloom.pack_bits(to_t(dense)))], [dense])
 
 
@@ -194,6 +252,7 @@ STORE_SHAPES = [  # (N, M, B, key range)
     (32, 48, 24, 200),         # the slice's ring and intake widths
     (16, 8, 20, 12),           # capacity overflow: batch wider than ring
     (8, 12, 1, 5),             # create_messages' one-record batch
+    (6, 200, 56, 40),          # M + B = 256, K3's widest row
 ]
 
 
@@ -210,14 +269,43 @@ def test_store_insert(n, m, b, keys, merge, monkeypatch):
         bt[c] = np.where(take & (s[0][np.arange(n)[:, None], src] != U32_MAX),
                          s[c][np.arange(n)[:, None], src], bt[c])
     mask = rs.random((n, b)) < 0.7
-    want = jstore.store_insert(jstore.StoreCols(*map(jnp.asarray, s)),
-                               jstore.StoreCols(*map(jnp.asarray, bt)),
-                               jnp.asarray(mask))
+    want = ref(jstore.store_insert, jstore.StoreCols(*s),
+               jstore.StoreCols(*bt), mask)
     got = st.store_insert(st.StoreCols(*map(to_t, s)),
                           st.StoreCols(*map(to_t, bt)), to_t(mask))
     same(got.store, want.store)
     same(got[1:], want[1:])
     assert int(to_np(got.n_dropped).sum()) > 0   # dups or overflow hit
+
+
+@pytest.mark.parametrize("n,m,b,keys,holes", [
+    (24, 48, 24, 30, False),   # the intake merge's widths, permuted rings
+    (16, 12, 8, 6, True),      # EMPTY holes amid the live records
+])
+def test_store_insert_unsorted_ring(n, m, b, keys, holes, monkeypatch):
+    """Rings that break the round invariant (records out of (gt, member)
+    order, EMPTY slots amid live ones) against the JAX sort form, which
+    has no precondition on the ring's order (the merge form presumes a
+    sorted ring, so it is not held here)."""
+    monkeypatch.setattr(jstore, "_prefer_merge", lambda width: False)
+    rs = np.random.default_rng(n * m + b + keys)
+    s, bt = ring(rs, n, m, keys), batch(rs, n, b, keys)
+    order = np.argsort(rs.random((n, m)), axis=1)
+    s = [np.take_along_axis(c, order, 1) for c in s]
+    if holes:   # gt EMPTY over a record, its member left in place
+        s[0] = np.where(rs.random((n, m)) < 0.3, U32_MAX, s[0]).astype(
+            np.uint32)
+    keys_s = (s[0].astype(np.uint64) << np.uint64(32)) | s[1]
+    live = s[0] != U32_MAX
+    assert (live[:, 1:] & (~live[:, :-1] | (keys_s[:, 1:] < keys_s[:, :-1]))
+            ).any()
+    mask = rs.random((n, b)) < 0.7
+    want = ref(jstore.store_insert, jstore.StoreCols(*s),
+               jstore.StoreCols(*bt), mask)
+    got = st.store_insert(st.StoreCols(*map(to_t, s)),
+                          st.StoreCols(*map(to_t, bt)), to_t(mask))
+    same(got.store, want.store)
+    same(got[1:], want[1:])
 
 
 @pytest.mark.parametrize("n,m", [(DIMS["N"], DIMS["M"]), (40, 48)])
@@ -259,15 +347,12 @@ def test_rank_compact_many(n, w, width, impl):
             (rs.integers(0, 256, size=(n, w)).astype(np.uint8), 0xFF),
             (rs.integers(0, 256, size=(n, w)).astype(np.uint8), 0),
             (live, False)]
-    want = jstore.rank_compact_many(
-        [(jnp.asarray(c), f) for c, f in cols], jnp.asarray(slot), width,
-        impl=impl)
+    want = ref(jstore.rank_compact_many, cols, slot, width, impl=impl)
     got = st.rank_compact_many([(to_t(c), f) for c, f in cols], to_t(slot),
                                width)
     same(got, want)
     same([st.rank_compact(to_t(cols[0][0]), to_t(slot), width, U32_MAX)],
-         [jstore.rank_compact(jnp.asarray(cols[0][0]), jnp.asarray(slot),
-                              width, U32_MAX)])
+         [ref(jstore.rank_compact, cols[0][0], slot, width, U32_MAX)])
 
 
 # ---- K5 intake checks ----------------------------------------------------------
@@ -280,11 +365,8 @@ def test_intake_checks(n, m, b, impl):
     s = ring(rs, n, m, keys=30, members=3)
     bg, bm = u32(rs, n, b, hi=30), u32(rs, n, b, hi=3)
     ok = rs.random((n, b)) < 0.7
-    jstc = jstore.StoreCols(*map(jnp.asarray, s))
-    want_in = jintake.in_store(jstc, jnp.asarray(bm), jnp.asarray(bg),
-                               impl=impl)
-    want_dup = jintake.dup_earlier(jnp.asarray(bm), jnp.asarray(bg),
-                                   jnp.asarray(ok), impl=impl)
+    want_in = ref(jintake.in_store, jstore.StoreCols(*s), bm, bg, impl=impl)
+    want_dup = ref(jintake.dup_earlier, bm, bg, ok, impl=impl)
     pstc = st.StoreCols(*map(to_t, s))
     got = intake.intake_checks(pstc.gt, pstc.member, to_t(bm), to_t(bg),
                                to_t(ok))
@@ -323,37 +405,34 @@ def test_candidates(seed):
     jr, pr = jnp.uint32(11 + seed), torch.tensor(11 + seed)
 
     cats = cand.categories(pt, pnow, pc)
-    same([cats], [jcand.categories(jt, jnow, jc)])
+    same([cats], [ref(jcand.categories, jt, jnow, jc)])
     same([cand.is_eligible(pt, cats, pnow, pc)],
-         [jcand.is_eligible(jt, jnp.asarray(to_np(cats)), jnow, jc)])
+         [ref(jcand.is_eligible, jt, to_np(cats), jnow, jc)])
     boot_b = np.zeros(n, np.int32)
     boot_c = np.full(n, pc.n_trackers, np.int32)
     same([cand.sample_walk_target(pt, pnow, pc, pseed, pr, to_t(idx),
                                   to_t(boot_b), to_t(boot_c))],
-         [jcand.sample_walk_target(jt, jnow, jc, jseed, jr, jnp.asarray(idx),
-                                   jnp.asarray(boot_b), jnp.asarray(boot_c))])
+         [ref(jcand.sample_walk_target, jt, jnow, jc, jseed, jr, idx,
+              boot_b, boot_c)])
     same([cand.sample_forward_targets(pt, pnow, pc, pseed, pr, to_t(idx))],
-         [jcand.sample_forward_targets(jt, jnow, jc, jseed, jr,
-                                       jnp.asarray(idx))])
+         [ref(jcand.sample_forward_targets, jt, jnow, jc, jseed, jr, idx)])
     excl = rs.integers(-1, n, size=(n, 5)).astype(np.int32)
     same([cand.sample_introductions(pt, pnow, pc, pseed, pr, to_t(idx),
                                     to_t(excl), salt_base=1 << 20)],
-         [jcand.sample_introductions(jt, jnow, jc, jseed, jr,
-                                     jnp.asarray(idx), jnp.asarray(excl),
-                                     salt_base=1 << 20)])
+         [ref(jcand.sample_introductions, jt, jnow, jc, jseed, jr, idx,
+              excl, salt_base=1 << 20)])
     upd = rs.integers(-1, n, size=(n, 6)).astype(np.int32)
     upd[:, 3] = upd[:, 1]                   # a repeat inside one batch
     kind = rs.integers(0, 3, size=(n, 6)).astype(np.int32)
     ok = rs.random((n, 6)) < 0.8
     same(cand.upsert_many(pt, to_t(upd), to_t(kind), to_t(ok), pnow,
                           to_t(idx), n_trackers=pc.n_trackers),
-         jcand.upsert_many(jt, jnp.asarray(upd), jnp.asarray(kind),
-                           jnp.asarray(ok), jnow, jnp.asarray(idx),
-                           n_trackers=jc.n_trackers))
+         ref(jcand.upsert_many, jt, upd, kind, ok, jnow, idx,
+             n_trackers=jc.n_trackers))
     gone = tab[0][:, 0].copy()
     kill = rs.random(n) < 0.5
     same(cand.remove(pt, to_t(gone), to_t(kill)),
-         jcand.remove(jt, jnp.asarray(gone), jnp.asarray(kill)))
+         ref(jcand.remove, jt, gone, kill))
 
 
 # ---- the byte-diet round's call shapes ----------------------------------------
@@ -384,23 +463,20 @@ def test_digest_update_and_row_salts(n, m, w, k, salt_kind):
     got = bloom.digest_update(to_t(dig), to_t(h), to_t(mask), bits, k,
                               salt=ps)
     # The gather form the JAX engine runs on the CPU ...
-    same([got], [jbloom.digest_update(
-        jnp.asarray(dig), jbloom.probe_bits(jnp.asarray(h), bits, k, js),
-        jnp.asarray(mask), bits)])
+    same([got], [ref(lambda d, h, m, s: jbloom.digest_update(
+        d, jbloom.probe_bits(h, bits, k, s), m, bits), dig, h, mask, js)])
     # ... and the compare form (dig | bloom_build) of the TPU.
     for impl in ("gather", "compare"):
-        same([got], [jnp.asarray(dig) | jbloom.bloom_build(
-            jnp.asarray(h), jnp.asarray(mask), bits, k, impl=impl,
-            salt=js)])
+        same([got], [ref(lambda d, h, m, s: d | jbloom.bloom_build(
+            h, m, bits, k, impl=impl, salt=s), dig, h, mask, js)])
     same([bloom.probe_bits(to_t(h), bits, k, ps).to(torch.int32)],
-         [jbloom.probe_bits(jnp.asarray(h), bits, k, js)])
+         [ref(jbloom.probe_bits, h, bits, k, js)])
     # Queries at the same salts: the freshness test against the digest.
     q = np.where(rs.random((n, m)) < 0.5, h, u32(rs, n, m))
     present = bloom.bloom_query(got, to_t(q), bits, k, salt=ps)
     for impl in ("gather", "compare"):
-        same([present], [jbloom.bloom_query(jnp.asarray(to_np(got)),
-                                            jnp.asarray(q), bits, k,
-                                            impl=impl, salt=js)])
+        same([present], [ref(jbloom.bloom_query, to_np(got), q, bits, k,
+                             impl=impl, salt=js)])
     assert to_np(present)[mask & (q == h)].all()
     assert not np.array_equal(to_np(got), dig) or not mask.any()
 
@@ -428,9 +504,8 @@ def test_store_stage(n, s, b, p, fill, aux16):
     bt = batch(rs, n, b)
     bt[4] = u32(rs, n, b)                  # full-width aux: narrowed
     mask = rs.random((n, b)) < p           # holes in the batch
-    want = jstore.store_stage(jstore.StoreCols(*map(jnp.asarray, cols)),
-                              jstore.StoreCols(*map(jnp.asarray, bt)),
-                              jnp.asarray(mask))
+    want = ref(jstore.store_stage, jstore.StoreCols(*cols),
+               jstore.StoreCols(*bt), mask)
     got = st.store_stage(st.StoreCols(*map(to_t, cols)),
                          st.StoreCols(*map(to_t, bt)), to_t(mask))
     same(got.staging, want.staging)
@@ -475,9 +550,8 @@ def test_store_insert_u16_aux(n, m, b, keys):
         bt = batch(rs, n, b, keys)
         bt[4] = u32(rs, n, b).astype(aux_dt)
         mask = rs.random((n, b)) < 0.7
-        want = jstore.store_insert(jstore.StoreCols(*map(jnp.asarray, s)),
-                                   jstore.StoreCols(*map(jnp.asarray, bt)),
-                                   jnp.asarray(mask))
+        want = ref(jstore.store_insert, jstore.StoreCols(*s),
+                   jstore.StoreCols(*bt), mask)
         got = st.store_insert(st.StoreCols(*map(to_t, s)),
                               st.StoreCols(*map(to_t, bt)), to_t(mask))
         assert got.store.aux.dtype == torch.uint16
@@ -498,9 +572,7 @@ def test_rank_compact_many_u16(impl):
             (u32(rs, n, w).astype(np.uint16), 0xFFFF),
             (rs.integers(0, 256, size=(n, w)).astype(np.uint8), 0xFF),
             (live, False)]
-    want = jstore.rank_compact_many(
-        [(jnp.asarray(c), f) for c, f in cols], jnp.asarray(slot), width,
-        impl=impl)
+    want = ref(jstore.rank_compact_many, cols, slot, width, impl=impl)
     got = st.rank_compact_many([(to_t(c), f) for c, f in cols], to_t(slot),
                                width)
     same(got, want)
@@ -515,8 +587,7 @@ def test_deliver_u16_column():
     valid = rs.random(e) < 0.8
     cols = [u32(rs, e), rs.integers(0, 256, size=e).astype(np.uint8),
             u32(rs, e).astype(np.uint16)]
-    want = jinbox.deliver(jnp.asarray(dst), [jnp.asarray(c) for c in cols],
-                          jnp.asarray(valid), n, q)
+    want = ref(jinbox.deliver, dst, cols, valid, n, q)
     got = inbox.deliver(to_t(dst), [to_t(c) for c in cols], to_t(valid), n,
                         q)
     assert got.inbox[2].dtype == torch.uint16
@@ -530,8 +601,7 @@ def test_dup_earlier_without_store(n, b, impl):
     rs = np.random.default_rng(n * b)
     bg, bm = u32(rs, n, b, hi=12), u32(rs, n, b, hi=3)
     ok = rs.random((n, b)) < 0.7
-    want = jintake.dup_earlier(jnp.asarray(bm), jnp.asarray(bg),
-                               jnp.asarray(ok), impl=impl)
+    want = ref(jintake.dup_earlier, bm, bg, ok, impl=impl)
     got = intake.dup_earlier(to_t(bm), to_t(bg), to_t(ok))
     same([got], [want])
     if n * b > 100:

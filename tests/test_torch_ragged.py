@@ -18,7 +18,8 @@ from dispersy_tpu_torch import kernels
 from dispersy_tpu_torch.exceptions import KernelError
 from dispersy_tpu_torch.ops import inbox
 
-from test_torch_ops import same, to_np, to_t, u32
+from test_torch_ops import (release_xla_executables,  # noqa: F401
+                            same, to_np, to_t, u32)
 
 
 def edges(rs, e, n, w=0, hot=0.2):

@@ -31,6 +31,11 @@ from dispersy_tpu_torch.planes import (StoreConfig, TelemetryConfig,
                                        TraceConfig)
 from dispersy_tpu_torch.storediet import phase_of
 
+from test_torch_ops import ref, release_xla_executables  # noqa: F401
+
+# One torch thread, as in test_torch_ops.
+torch.set_num_threads(1)
+
 BASE = dict(n_peers=128, n_trackers=2, k_candidates=8, msg_capacity=32)
 CASES = {
     "warm": (BASE, True),
@@ -46,18 +51,17 @@ def start(kw, warm, seed=5, store=None):
     if store is not None:
         jc = jc.replace(store=JaxStore(**store))
         pc = pc.replace(store=StoreConfig(**store))
-    js = jstate.init_state(jc, jax.random.PRNGKey(seed))
+    js = ref(jstate.init_state, jc, jax.random.PRNGKey(seed))
     ps = init_state(pc, seed, device="cpu")
     assert_states_equal(ps, js, "init_state")
     if warm:
-        js = jeng.seed_overlay(js, jc, degree=6)
+        js = ref(jeng.seed_overlay, js, jc, degree=6)
         ps = engine.seed_overlay(ps, pc, 6)
         assert_states_equal(ps, js, "seed_overlay")
     n = kw["n_peers"]
     authors = np.arange(n) % 16 == 3
     payload = (np.arange(n) * 7 + 11).astype(np.uint32)
-    js = jeng.create_messages(js, jc, jnp.asarray(authors), 1,
-                              jnp.asarray(payload))
+    js = ref(jeng.create_messages, js, jc, authors, 1, payload)
     ps = engine.create_messages(ps, pc, torch.from_numpy(authors), 1,
                                 torch.from_numpy(payload.astype(np.int64)))
     assert_states_equal(ps, js, "create_messages")
@@ -202,8 +206,9 @@ def run_both(pc, rounds, creates, seed=5, degree=6, store=None):
     if store is not None:
         jc = jc.replace(store=JaxStore(**store))
         pc = pc.replace(store=StoreConfig(**store))
-    js = jeng.seed_overlay(jstate.init_state(jc, jax.random.PRNGKey(seed)),
-                           jc, degree=degree)
+    js = ref(lambda key: jeng.seed_overlay(jstate.init_state(jc, key), jc,
+                                           degree=degree),
+             jax.random.PRNGKey(seed))
     ps = engine.seed_overlay(init_state(pc, seed, device="cpu"), pc, degree)
 
     def rows(ids):

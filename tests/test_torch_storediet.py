@@ -25,6 +25,11 @@ from dispersy_tpu_torch.bridge import state_to_numpy
 from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch.planes import StoreConfig
 
+# One torch thread, as in test_torch_ops.
+torch.set_num_threads(1)
+
+from test_torch_ops import release_xla_executables  # noqa: E402,F401
+
 GRID = [(c, k) for c, k in itertools.product((1, 4, 8, 12), (1, 2, 4))
         if c % k == 0]
 ROUNDS = list(range(0, 40)) + [1000, 2 ** 31 + 7]

@@ -28,7 +28,8 @@ from dispersy_tpu_torch.config import (META_AUTHORIZE, META_DYNAMIC,
 from dispersy_tpu_torch.ops import intake
 from dispersy_tpu_torch.ops import store as st
 from dispersy_tpu_torch.ops import timeline as tl
-from test_torch_ops import same, to_np, to_t
+from test_torch_ops import (release_xla_executables,  # noqa: F401
+                            same, to_np, to_t)
 
 EMPTY = 0xFFFFFFFF
 
@@ -206,7 +207,9 @@ def tstc(cols):
     return st.StoreCols(*map(to_t, cols))
 
 
-REPLAY_SHAPES = [(30, 48, 24), (11, 7, 1)]   # (N, M, Q)
+# (N, M, Q): the intake's queries, the author gate's one, the retro
+# pass's (the ring's own rows).
+REPLAY_SHAPES = [(30, 48, 24), (11, 7, 1), (12, 48, 48)]
 
 
 @pytest.mark.parametrize("n,m,q", REPLAY_SHAPES)
@@ -245,6 +248,42 @@ def test_store_replays(n, m, q):
     assert (hits == 0xFFFF).any() and (hits < 32).any()
 
 
+@pytest.mark.parametrize("select", ["none", "every"])
+def test_store_replays_select_none_or_every(select):
+    """K9's selecting column at its extremes: no ring row (nor batch
+    entry) is a flip, an undo or a user record -- or every one is -- so
+    each replay compares nothing, or every slot."""
+    n, m, q = 12, 48, 24
+    rs = np.random.default_rng(7 + len(select))
+    s = store_rows(rs, n, m)
+    live = s[0] != EMPTY
+    for meta, name in ((255, "none"), (META_DYNAMIC, "flip"),
+                       (META_UNDO_OWN, "undo"), (1, "user")):
+        if (select == "none") != (name == "none"):
+            continue
+        s[2] = np.where(live | (select == "every"), meta, 255).astype(
+            np.uint8)
+        member = u32(rs, n, q, hi=5)
+        gt = u32(rs, n, q, hi=10)
+        q_meta8 = rs.integers(0, 6, size=(n, q)).astype(np.uint8)
+        js_, ts = jstc(s), tstc(s)
+        same([intake.flip_best(ts, to_t(q_meta8), to_t(gt))],
+             [jitted(jintake.flip_best, impl="broadcast")(
+                 js_, jnp.asarray(q_meta8), jnp.asarray(gt))])
+        same([intake.undo_marked(ts, to_t(member), to_t(gt))],
+             [jitted(jintake.undo_marked, impl="broadcast")(
+                 js_, jnp.asarray(member), jnp.asarray(gt))])
+        same([intake.stored_meta_of(ts, to_t(member), to_t(gt))],
+             [jitted(jintake.stored_meta_of, impl="broadcast")(
+                 js_, jnp.asarray(member), jnp.asarray(gt))])
+        valid = np.full((n, q), select == "every")
+        same([intake.undo_hits_store(ts, to_t(member), to_t(gt),
+                                     to_t(valid))],
+             [jitted(jintake.undo_hits_store, impl="broadcast")(
+                 js_, jnp.asarray(member), jnp.asarray(gt),
+                 jnp.asarray(valid))])
+
+
 # ---- K10 store_remove and K3 with a history ------------------------------------
 
 def ring(rs, n, m, keys=30, members=4, metas=3, aux16=False):
@@ -281,6 +320,35 @@ def test_store_remove(n, m, aux16):
     same(got.store, want.store)
     same([got.n_removed], [want.n_removed])
     assert int(to_np(got.n_removed).sum()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_store_insert_history_spans_ring_and_batch(k):
+    """LastSync groups whose records sit on both sides of the merge: the
+    batch re-sends (member, meta) groups the ring holds, at global times
+    below, between and above the stored ones, so a kept-k group loses
+    records of the ring, of the batch, or of both (k = 1 and 2)."""
+    n, m, b = 16, 24, 12
+    history = (k, 0, k)
+    rs = np.random.default_rng(40 + k)
+    s = ring(rs, n, m, keys=40, members=2, metas=3)
+    bt = ring(rs, n, b, keys=40, members=2, metas=3)
+    bt[0] = np.where(bt[0] == EMPTY, u32(rs, n, b, lo=1, hi=40), bt[0])
+    bt[1] = np.where(bt[1] == EMPTY, u32(rs, n, b, hi=2), bt[1])
+    bt[2] = np.where(bt[2] == 255, rs.integers(0, 3, size=(n, b)),
+                     bt[2]).astype(np.uint8)
+    bt[4] = u32(rs, n, b, hi=1 << 20)
+    mask = rs.random((n, b)) < 0.9
+    want = jitted(jstore.store_insert, history=history)(
+        jstc(s), jstc(bt), jnp.asarray(mask))
+    got = st.store_insert(tstc(s), tstc(bt), to_t(mask), history=history)
+    same(got.store, want.store)
+    same(got[1:], want[1:])
+    # Both sides lost records to the history, in one row at least.
+    plain = st.store_insert(tstc(s), tstc(bt), to_t(mask))
+    ev = to_np(got.n_evicted) > to_np(plain.n_evicted)
+    dr = to_np(got.n_dropped) > to_np(plain.n_dropped)
+    assert (ev & dr).any()
 
 
 HISTORY_SHAPES = [  # (N, M, B, history, u16 aux)
