@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernels: every kernel of the five paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes (K1 at each of its call shapes, and the delivery
-   core's corners for K1, K1 with classes and K12; K3 at the intake
+   core's corners for K1, K1 with classes and K12; K2's and K6's
+   corners: W = 3, 15, 77, 256 by M = 1, 31, 48, unsalted, one salt and
+   a salt a row, strided inbox and cohort views; K3 at the intake
    merge and the one-record insert, and K3's corners: rings out of
    order, ties, empty and overflowing rows, B = 1, 8, 24, M + B = 256,
    history groups across ring and batch, u16 aux), the byte-diet round's
@@ -21,7 +23,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and K9's corners: Q = 1, 24, 48, nothing or everything selected,
    times at and above 2^31, several rows of one key; store_remove, K3
    with a LastSync history), then the hardened round's
-   (the store probes in each K11 mode, with planted hits), then the
+   (the store probes in each K11 mode, with planted hits, and K11's
+   corners: every slot or no slot selecting, B = 1, M = 1, M = 45, N
+   not a multiple of a block's rows, values at 2^31 and 0xFFFFFFFE,
+   identity metas on empty slots, one key queried 24 times), then the
    chaos round's (K12 on the capped push blast with admission classes,
    on the exact request channel with receipts, where it must also equal
    K1, and on the exact puncture channels; K1 with classes on the
@@ -365,6 +370,68 @@ def check_bloom(x: Draw, reps: int) -> list:
     return rows
 
 
+def check_bloom_corners(x: Draw, reps: int) -> list:
+    """K2's build and query and K6, untimed, bit-equal to their plain
+    versions at 2^16 + 3 rows: W = 3, 15, 77 and 256 words (n_bits 96,
+    480, 2,464 and 8,192) by M = 1, 31 and 48 items, each unsalted, with
+    one salt and with a salt a row; the query on a slot of a [N, 4, W]
+    request inbox (row-strided) and on ``cohort_take``'s block of a
+    digest (stride 4 W); hash pairs whose ``h1 + j * h2`` wraps past
+    2^32 (counted, and most do)."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import bloom
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.ops.hashing import (BLOOM_SEED_1, BLOOM_SEED_2,
+                                                hash_u32)
+    from dispersy_tpu_torch.u32 import narrow
+    n, k = (1 << 16) + 3, x.cfg.bloom_hashes
+    for w in (3, 15, 77, 256):
+        bits = 32 * w
+        for m in (1, 31, 48):
+            h = x.u32(n, m)
+            if w == 15 and m == 48:
+                h1, h2 = (hash_u32(h, s) for s in (BLOOM_SEED_1,
+                                                  BLOOM_SEED_2))
+                wraps = int((h1 + (k - 1) * (h2 | 1) >= 1 << 32).sum())
+                if wraps < h.numel() // 2:
+                    fail(f"bloom corners: {wraps} of {h.numel()} unsalted "
+                         "probe chains wrap past 2^32")
+            mask = x.flags(0.6, n, m)
+            q = torch.where(x.flags(0.5, n, m), h.view(torch.int32),
+                            x.u32(n, m).view(torch.int32)).view(torch.uint32)
+            for kind, salt in (("none", None),
+                               ("scalar", narrow(torch.tensor(
+                                   0xFFFFFFFE, device=x.dev))),
+                               ("row", x.u32(n, hi=6))):
+                what = f"W = {w}, M = {m}, salt {kind}"
+                built = kernels.bloom_build(h, mask, bits, k, salt)
+                dig = x.u32(n, w)
+                inbox = torch.stack([dig, built, dig, dig], dim=1)
+                got = [built, kernels.digest_update(dig, h, mask, bits, k,
+                                                    salt),
+                       kernels.bloom_query(inbox[:, 1], q, bits, k, salt)]
+                want = [bloom.bloom_build_plain(h, mask, bits, k, salt),
+                        bloom.digest_update_plain(dig, h, mask, bits, k,
+                                                  salt),
+                        bloom.bloom_query_plain(inbox[:, 1], q, bits, k,
+                                                salt)]
+                if kind != "row":     # a cohort's block: one salt
+                    blk = st.cohort_take(built[:n // 4 * 4], 1, 4)
+                    qb = q[:blk.shape[0]].contiguous()
+                    got.append(kernels.bloom_query(blk, qb, bits, k, salt))
+                    want.append(bloom.bloom_query_plain(blk, qb, bits, k,
+                                                        salt))
+                err = max_abs_err(got, want)
+                if err != 0:
+                    fail(f"K2/K6 corner {what} disagrees with the plain "
+                         f"version (max abs err {err})")
+        print(f"bloom corner W = {w}: build, digest update and the strided "
+              f"queries bit-equal (M = 1, 31, 48; every salt kind)",
+              flush=True)
+    return []
+
+
 def store_inputs(x: Draw, b: int | None = None):
     """Sorted rings with a random fill and a batch of the intake width
     (sync + push; or ``b``), keys drawn from a small range so that
@@ -549,6 +616,7 @@ def check_intake(x: Draw, reps: int) -> list:
 
 
 KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom,
+                 check_bloom_corners,
                  check_store, check_store_corners, check_compact,
                  check_intake)
 
@@ -998,89 +1066,23 @@ PERM_KERNEL_CHECKS = (check_timeline, check_store_match,
 
 # ---- phase 2, the hardened round's call shapes -------------------------------
 
-def probe_inputs(x: Draw, n: int, m: int, b: int):
-    """A ring of user, identity and proof records with empty slots, keys
-    from small ranges and values at and above 2^31, and an [N, B] batch
-    that copies ring slots (some with the meta, payload or aux changed)
-    or draws fresh keys: planted hits for every K11 mode."""
-    np = x.np
-    from dispersy_tpu_torch.ops import store as st
-    rs = x.rs
-    gts = np.array([1, 2, 3, 1 << 31, (1 << 31) + 5, 0xFFFFFFFE], np.uint32)
-    metas = np.array([0, 1, 0xF6, 0xF7], np.uint8)
-    live = rs.random((n, m)) < 0.8
-    cols = [np.where(live, rs.choice(gts, size=(n, m)), 0xFFFFFFFF),
-            np.where(live, rs.integers(0, 6, size=(n, m)), 0xFFFFFFFF),
-            np.where(live, rs.choice(metas, size=(n, m)), 0xFF),
-            rs.choice(gts, size=(n, m)), rs.choice(gts, size=(n, m))]
-    pick = rs.integers(0, m, size=(n, b))
-    rows = np.arange(n)[:, None]
-    q = [c[rows, pick] for c in (cols[1], cols[0], cols[2], cols[3],
-                                 cols[4])]
-    fresh = rs.random((n, b)) < 0.3
-    q[0] = np.where(fresh, rs.integers(0, 7, size=(n, b)), q[0])
-    q[1] = np.where(fresh, rs.choice(gts, size=(n, b)), q[1])
-    for i, pool in ((2, metas), (3, gts), (4, gts)):
-        q[i] = np.where(rs.random((n, b)) < 0.2, rs.choice(pool, size=(n, b)),
-                        q[i])
-
-    def u8(a):
-        return x.torch.from_numpy(a.astype(np.uint8)).to(x.dev)
-    stc = st.StoreCols(gt=x.from_u32(cols[0]), member=x.from_u32(cols[1]),
-                       meta=u8(cols[2]), payload=x.from_u32(cols[3]),
-                       aux=x.from_u32(cols[4]), flags=u8(np.zeros((n, m))))
-    return stc, (x.from_u32(q[0]), x.from_u32(q[1]), u8(q[2]),
-                 x.from_u32(q[3]), x.from_u32(q[4]))
-
-
 def check_store_probe(x: Draw, reps: int) -> list:
     """K11 in each mode at the intake's [N, 24] batch against the [N, 48]
-    ring.  Bytes: what the function must read -- every query column and
-    the ring's selecting columns in full ((member, gt) for ``conflict``,
-    the meta for ``identity``, (member, meta) for ``seq_max``), the other
-    columns only at the slots that select (a live row of the queried
-    (member, gt), an identity row, a live row of the queried (member,
-    meta)) -- and the output."""
+    ring (``profiling.probe_inputs``: planted hits for every mode).
+    Bytes (``profiling.k11_cases``): what the function must read -- every
+    query column and the ring's selecting columns in full ((member, gt)
+    for ``conflict``, the meta for ``identity``, (member, meta) for
+    ``seq_max``), the other columns only at the slots that select -- and
+    the output."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.config import META_IDENTITY
-    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.profiling import k11_cases, probe_inputs
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     b = cfg.response_budget + cfg.push_inbox
-    stc, (member, gt, meta, payload, aux) = probe_inputs(x, n, m, b)
-    sm, sg = stc.member.view(torch.int32), stc.gt.view(torch.int32)
-    live = sg != -1
-    same_mg = torch.zeros((n, m), dtype=torch.bool, device=x.dev)
-    same_mt = torch.zeros_like(same_mg)
-    for j in range(b):     # the ring slots some query selects
-        qm = member.view(torch.int32)[:, j:j + 1]
-        same_mg |= (sm == qm) & (sg == gt.view(torch.int32)[:, j:j + 1])
-        same_mt |= (sm == qm) & (stc.meta == meta[:, j:j + 1])
-    n_mg = int((same_mg & live).sum())
-    n_mt = int((same_mt & live).sum())
-    n_id = int((stc.meta == META_IDENTITY).sum())
-    nb = n * b
-    cases = {
-        "conflict": (
-            (stc.gt, stc.member, stc.meta, stc.payload, stc.aux),
-            (member, gt, meta, payload, aux),
-            lambda: intake.conflict_plain(stc, member, gt, meta, payload,
-                                          aux),
-            8 * n * m + 9 * n_mg + 17 * nb + nb, 5,
-            "dispersy_tpu/ops/intake.py:104"),
-        "identity": (
-            (stc.meta, stc.member), (member,),
-            lambda: intake.identity_stored_plain(stc, member),
-            n * m + 4 * n_id + 4 * nb + nb, 2,
-            "dispersy_tpu/ops/intake.py:269"),
-        "seq_max": (
-            (stc.gt, stc.member, stc.meta, stc.aux), (member, meta),
-            lambda: intake.seq_stored_max_plain(stc, member, meta),
-            5 * n * m + 8 * n_mt + 5 * nb + 4 * nb, 3,
-            "dispersy_tpu/ops/intake.py:325"),
-    }
+    stc, q = probe_inputs(x, n, m, b)
     rows = []
-    for mode, (s_cols, q_cols, plain, moved, cmps, replaces) in cases.items():
+    for mode, (s_cols, q_cols, plain, moved, cmps, replaces) in k11_cases(
+            stc, *q).items():
         got = kernels.store_probe(mode, s_cols, q_cols)
         if got.dtype == torch.uint32:
             g = got.view(torch.int32)
@@ -1092,16 +1094,71 @@ def check_store_probe(x: Draw, reps: int) -> list:
         if not bool(hit.any()) or bool(hit.all()):
             fail(f"store_probe {mode} inputs give a constant answer")
         rows.append(timed_entry(
-            f"store_probe_{mode}", "triton",
-            "dispersy_tpu_torch/kernels/intake_triton.py", replaces, [got],
-            [plain()],
+            f"store_probe_{mode}", "cuda", "dispersy_tpu_torch/csrc/probe.cu",
+            replaces, [got], [plain()],
             lambda s_cols=s_cols, q_cols=q_cols, mode=mode:
             kernels.store_probe(mode, s_cols, q_cols),
             plain, moved, reps, ops=cmps * n * b * m))
     return rows
 
 
-HARD_KERNEL_CHECKS = (check_store_probe,)
+def check_store_probe_corners(x: Draw, reps: int) -> list:
+    """K11 on the inputs its selection and its unsigned order branch on,
+    untimed, bit-equal to the plain version in every mode: every slot and
+    no slot selecting (all identity records, all slots empty, every slot
+    the queried (member, gt)); B = 1 and M = 1; M = 45, not a multiple of
+    the group's 8 lanes, and N = 2^16 + 3 rows, not a multiple of a
+    block's; gt and aux at 2^31 and 0xFFFFFFFE (``probe_inputs`` draws
+    them); an identity meta on EMPTY-gt slots; all 24 queries one (member,
+    gt).  The hit counts show each case answers as named."""
+    np, torch = x.np, x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import META_IDENTITY
+    from dispersy_tpu_torch.profiling import k11_cases, probe_inputs
+    n, m, b = (1 << 16) + 3, x.cfg.msg_capacity, 24
+
+    def full(col, v):
+        if col.dtype == torch.uint8:
+            return torch.full_like(col, v)
+        return x.from_u32(np.full(tuple(col.shape), v, np.uint32))
+
+    cases = {}
+    for shape in ((n, m, b), (n, 1, 1), (n, m, 1), (n, 1, b), (n, 45, b)):
+        cases[f"random {shape}"] = probe_inputs(x, *shape)
+    stc, q = probe_inputs(x, n, m, b)
+    cases["all identity"] = (stc._replace(meta=full(stc.meta, META_IDENTITY)),
+                             q)
+    cases["all empty, identity metas"] = (stc._replace(
+        gt=full(stc.gt, 0xFFFFFFFF),
+        meta=full(stc.meta, META_IDENTITY)), q)
+    cases["all empty, no identity"] = (stc._replace(
+        gt=full(stc.gt, 0xFFFFFFFF), meta=full(stc.meta, 0)), q)
+    one = tuple(c[:, :1].expand(n, b).contiguous() for c in q)
+    cases["one (member, gt) queried 24 times"] = (stc, one)
+    # Every slot the first query's (member, gt, meta), payloads and aux
+    # as drawn: every slot matches every query of ``one``.
+    cases["every slot the queried key"] = (stc._replace(
+        member=one[0][:, :1].expand(n, m).contiguous(),
+        gt=one[1][:, :1].expand(n, m).contiguous(),
+        meta=one[2][:, :1].expand(n, m).contiguous()), one)
+    for name, (stc, q) in cases.items():
+        hits = {}
+        for mode, (s_cols, q_cols, plain, _, _, _) in k11_cases(
+                stc, *q).items():
+            got = kernels.store_probe(mode, s_cols, q_cols)
+            err = max_abs_err([got], [plain()])
+            if err != 0:
+                fail(f"kernel store_probe {mode} corner {name} disagrees "
+                     f"with its plain version (max abs err {err})")
+            hits[mode] = int((got.view(torch.int32) != 0).sum()
+                             if got.dtype == torch.uint32 else got.sum())
+        print(f"kernel store_probe corner {name}: mismatches 0 (untimed, "
+              f"every mode; nonzero answers {hits} of {q[0].numel()})",
+              flush=True)
+    return []
+
+
+HARD_KERNEL_CHECKS = (check_store_probe, check_store_probe_corners)
 
 
 # ---- phase 2, the chaos round's call shapes ---------------------------------

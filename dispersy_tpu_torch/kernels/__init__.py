@@ -4,7 +4,7 @@ The CUDA sources live in ``dispersy_tpu_torch/csrc``.  Each is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/kernels/`` (git-ignored) at first use -- one ``nvcc`` per
 source, all started together -- and loaded with ``ctypes``.  The Triton
-kernels (:mod:`.intake_triton`) are imported only when they are launched.
+kernel (K5, :mod:`.intake_triton`) is imported only when it is launched.
 
 Every wrapper here takes CUDA tensors only: it checks device, dtype,
 shape and contiguity and raises :class:`KernelError` on anything its
@@ -31,7 +31,7 @@ from dispersy_tpu_torch.exceptions import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("deliver", "bloom", "store", "compact", "stage", "timeline",
-           "remove", "ragged", "match")
+           "remove", "ragged", "match", "probe")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -56,6 +56,8 @@ STORE_MAX_HISTORY = 24     # csrc/store.cu MAX_META
 TIMELINE_MAX_SLOTS = 32    # csrc/timeline.cu MAX_A
 MATCH_MAX_WIDTH = 256      # csrc/match.cu MAX_W (16 B a slot, up to
                            # 32 rows a block in shared memory)
+PROBE_MAX_WIDTH = 256      # csrc/probe.cu MAX_W (24 B a slot, up to 32
+                           # rows a block in shared memory)
 
 
 def reset_launches() -> None:
@@ -285,17 +287,32 @@ def _bloom_bits(n_bits: int) -> None:
                           f"multiple of 32, at most {32 * BLOOM_MAX_WORDS}")
 
 
+def bloom_reciprocal(n_bits: int) -> tuple:
+    """``(magic, shift)`` with which csrc/bloom.cu takes ``x % n_bits``
+    for every u32 ``x`` without a division: ``t = (x * magic) >> 32``,
+    ``q = (t + ((x - t) >> 1)) >> shift``, ``x - q * n_bits`` (Granlund
+    and Montgomery, "Division by invariant integers using multiplication",
+    1994, fig. 4.1: the round-up reciprocal of ``2 <= n_bits < 2**32``
+    with its 33rd bit carried by the ``(x - t) >> 1`` step)."""
+    if not 2 <= n_bits < 1 << 32:
+        raise KernelError(f"bloom_reciprocal: n_bits {n_bits} not in "
+                          "[2, 2**32)")
+    lg = (n_bits - 1).bit_length()          # ceil(log2(n_bits))
+    return ((1 << 32) * ((1 << lg) - n_bits)) // n_bits + 1, lg - 1
+
+
 def bloom_build(item_hashes, mask, n_bits: int, n_hashes: int, salt=None):
-    """Shared-memory bitset build, one warp per row (csrc/bloom.cu)."""
+    """Shared-memory bitsets, a group of lanes per row (csrc/bloom.cu)."""
     n, m = item_hashes.shape
     _req(item_hashes, "bloom_build.item_hashes", (torch.uint32,))
     _req(mask, "bloom_build.mask", (torch.bool,), (n, m))
     _bloom_bits(n_bits)
     words = torch.empty((n, n_bits // 32), dtype=torch.uint32,
                         device=mask.device)
-    err = _fn("bloom", "dk_bloom_build", 10)(
+    err = _fn("bloom", "dk_bloom_build", 12)(
         item_hashes.data_ptr(), mask.data_ptr(), n, m, n_bits, n_hashes,
-        *_salt(salt, n), words.data_ptr(), _stream())
+        *_salt(salt, n), *bloom_reciprocal(n_bits), words.data_ptr(),
+        _stream())
     _check(err, "bloom", "bloom_build")
     LAUNCHES["bloom_build"] += 1
     return words
@@ -304,16 +321,17 @@ def bloom_build(item_hashes, mask, n_bits: int, n_hashes: int, salt=None):
 def digest_update(digest, item_hashes, mask, n_bits: int, n_hashes: int,
                   salt=None):
     """K6: a new digest, ``digest`` with the masked items' probe bits ORed
-    in; one warp per row over a shared-memory bitset (csrc/bloom.cu)."""
+    in; K2's build kernel started from the digest (csrc/bloom.cu)."""
     n, m = item_hashes.shape
     _req(item_hashes, "digest_update.item_hashes", (torch.uint32,))
     _req(mask, "digest_update.mask", (torch.bool,), (n, m))
     _bloom_bits(n_bits)
     _req(digest, "digest_update.digest", (torch.uint32,), (n, n_bits // 32))
     words = torch.empty_like(digest)
-    err = _fn("bloom", "dk_digest_update", 11)(
+    err = _fn("bloom", "dk_digest_update", 13)(
         digest.data_ptr(), item_hashes.data_ptr(), mask.data_ptr(), n, m,
-        n_bits, n_hashes, *_salt(salt, n), words.data_ptr(), _stream())
+        n_bits, n_hashes, *_salt(salt, n), *bloom_reciprocal(n_bits),
+        words.data_ptr(), _stream())
     _check(err, "bloom", "digest_update")
     LAUNCHES["digest_update"] += 1
     return words
@@ -330,9 +348,10 @@ def bloom_query(words, item_hashes, n_bits: int, n_hashes: int, salt=None):
     if words.stride(1) != 1:
         raise KernelError("bloom_query.words: each row must be contiguous")
     out = torch.empty((n, m), dtype=torch.bool, device=words.device)
-    err = _fn("bloom", "dk_bloom_query", 11)(
+    err = _fn("bloom", "dk_bloom_query", 13)(
         words.data_ptr(), words.stride(0), item_hashes.data_ptr(), n, m,
-        n_bits, n_hashes, *_salt(salt, n), out.data_ptr(), _stream())
+        n_bits, n_hashes, *_salt(salt, n), *bloom_reciprocal(n_bits),
+        out.data_ptr(), _stream())
     _check(err, "bloom", "bloom_query")
     LAUNCHES["bloom_query"] += 1
     return out
@@ -621,8 +640,9 @@ def store_match(mode: str, w_cols, q_cols):
     return out
 
 
-# ---- K11: store probe (Triton) -----------------------------------------------
+# ---- K11: store probe ---------------------------------------------------------
 
+PROBE_MODES = {"conflict": 0, "identity": 1, "seq_max": 2}
 # The store columns each K11 mode reads, by StoreCols name, and its batch
 # columns, each with its dtype.
 _PROBE_STORE = {"conflict": ("gt", "member", "meta", "payload", "aux"),
@@ -631,16 +651,16 @@ _PROBE_STORE = {"conflict": ("gt", "member", "meta", "payload", "aux"),
 _PROBE_QUERY = {"conflict": ("member", "gt", "meta", "payload", "aux"),
                 "identity": ("member",),
                 "seq_max": ("member", "meta")}
+_PROBE_ORDER = ("gt", "member", "meta", "payload", "aux")
 
 
 def store_probe(mode: str, s_cols, q_cols):
-    """K11 in ``mode`` (:data:`.intake_triton.PROBE_MODES`): ``s_cols`` the
-    mode's store columns [N, M] and ``q_cols`` its batch columns [N, B],
-    in the order of :data:`_PROBE_STORE` / :data:`_PROBE_QUERY` (metas
-    u8, every other column u32).  Returns bool [N, B], or u32 [N, B] for
-    ``"seq_max"``."""
-    from dispersy_tpu_torch.kernels import intake_triton as it
-    if mode not in it.PROBE_MODES:
+    """K11 in ``mode`` (:data:`PROBE_MODES`; csrc/probe.cu): ``s_cols``
+    the mode's store columns [N, M] and ``q_cols`` its batch columns [N,
+    B], in the order of :data:`_PROBE_STORE` / :data:`_PROBE_QUERY`
+    (metas u8, read as bytes; every other column u32).  Returns bool [N,
+    B], or u32 [N, B] for ``"seq_max"``."""
+    if mode not in PROBE_MODES:
         raise KernelError(f"store_probe: unknown mode {mode!r}")
     names_s, names_q = _PROBE_STORE[mode], _PROBE_QUERY[mode]
     if len(s_cols) != len(names_s) or len(q_cols) != len(names_q):
@@ -654,26 +674,29 @@ def store_probe(mode: str, s_cols, q_cols):
         for name, c in cols.items():
             dt = torch.uint8 if name == "meta" else torch.uint32
             _req(c, f"store_probe.{mode}.{side}_{name}", (dt,), shape)
-    if m < 1 or b < 1:
-        raise KernelError(f"store_probe {mode}: M = {m} and B = {b} must "
-                          "be >= 1")
-    # A mode's unread columns point at one of its read columns.
-    sm, qm = s["member"], q["member"]
-    out = _intake_launch(
-        f"store_probe {mode}", it.PROBE_MODES[mode], s.get("gt", sm), sm,
-        s["meta"], s.get("payload", sm), s.get("aux", sm), qm,
-        q.get("gt", qm), q.get("meta", s["meta"]),
-        q.get("payload", qm), q.get("aux", qm), fn=it.launch_probe)
+    if not 1 <= m <= PROBE_MAX_WIDTH or b < 1:
+        raise KernelError(f"store_probe {mode}: M = {m} not in [1, "
+                          f"{PROBE_MAX_WIDTH}] or B = {b} < 1")
+    dt = torch.uint32 if mode == "seq_max" else torch.bool
+    out = torch.empty((n, b), dtype=dt, device=q["member"].device)
+
+    def ptrs(cols):       # a mode's unread columns are null
+        return [cols[k].data_ptr() if k in cols else None
+                for k in _PROBE_ORDER]
+    err = _fn("probe", "dk_store_probe", 16)(
+        PROBE_MODES[mode], *ptrs(s), *ptrs(q), out.data_ptr(), n, m, b,
+        _stream())
+    _check(err, "probe", f"store_probe {mode}")
     LAUNCHES[f"store_probe_{mode}"] += 1
     return out
 
 
-def _intake_launch(what: str, *args, fn=None):
+def _intake_launch(what: str, *args):
     from dispersy_tpu_torch.kernels import intake_triton
     # Triton raises on a failed compile or launch; the stream query
     # raises on an error the card has already reported (no wait).
     try:
-        out = (fn or intake_triton.launch)(*args)
+        out = intake_triton.launch(*args)
         torch.cuda.current_stream().query()
     except Exception as exc:
         raise KernelError(f"{what}: {exc}") from exc

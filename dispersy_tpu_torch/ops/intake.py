@@ -16,7 +16,8 @@ equality is tested, so u32 columns are compared through their int32 bit
 views.  The replays below share one CUDA kernel (K9 ``store_match``,
 ``csrc/match.cu``) in four modes, and the hardened community's three
 store probes -- double-sign evidence, the identity gate and the
-sequence-chain base -- a Triton kernel (K11 ``store_probe``) in three.
+sequence-chain base -- another (K11 ``store_probe``, ``csrc/probe.cu``)
+in three.
 """
 
 from __future__ import annotations
@@ -151,8 +152,8 @@ def stored_meta_of(stc, member, gt) -> torch.Tensor:
 # ---- the hardened community's store probes (K11 store_probe) ----------------
 # Each is one compare-and-reduce pass per row: the [N, B] batch entries
 # against the row's [N, M] store.  On a CUDA tensor every one goes
-# through the Triton kernel of ``kernels/intake_triton.py`` in its MODE;
-# on a CPU tensor through the plain broadcast form beside it.
+# through the CUDA kernel of ``csrc/probe.cu`` in its mode; on a CPU
+# tensor through the plain broadcast form beside it.
 
 def conflict_plain(stc, member, gt, meta, payload, aux) -> torch.Tensor:
     same = ((bits(stc.member)[:, None, :] == bits(member)[:, :, None])

@@ -911,14 +911,182 @@ def store_cases(n_peers: int = 1 << 20, seed: int = 0,
     return cases
 
 
+def probe_inputs(x, n: int, m: int, b: int):
+    """A ring of user, identity and proof records with empty slots, keys
+    from small ranges and values at and above 2^31, and an [N, B] batch
+    that copies ring slots (some with the meta, payload or aux changed)
+    or draws fresh keys: planted hits for every K11 mode.  Returns the
+    ring and the batch's (member, gt, meta, payload, aux)."""
+    from dispersy_tpu_torch.ops import store as st
+    rs = x.rs
+    gts = np.array([1, 2, 3, 1 << 31, (1 << 31) + 5, 0xFFFFFFFE], np.uint32)
+    metas = np.array([0, 1, META_IDENTITY, 0xF7], np.uint8)
+    live = rs.random((n, m)) < 0.8
+    cols = [np.where(live, rs.choice(gts, size=(n, m)), EMPTY_U32),
+            np.where(live, rs.integers(0, 6, size=(n, m)), EMPTY_U32),
+            np.where(live, rs.choice(metas, size=(n, m)), 0xFF),
+            rs.choice(gts, size=(n, m)), rs.choice(gts, size=(n, m))]
+    pick = rs.integers(0, m, size=(n, b))
+    rows = np.arange(n)[:, None]
+    q = [c[rows, pick] for c in (cols[1], cols[0], cols[2], cols[3],
+                                 cols[4])]
+    fresh = rs.random((n, b)) < 0.3
+    q[0] = np.where(fresh, rs.integers(0, 7, size=(n, b)), q[0])
+    q[1] = np.where(fresh, rs.choice(gts, size=(n, b)), q[1])
+    for i, pool in ((2, metas), (3, gts), (4, gts)):
+        q[i] = np.where(rs.random((n, b)) < 0.2, rs.choice(pool, size=(n, b)),
+                        q[i])
+
+    def u8(a):
+        return x.torch.from_numpy(a.astype(np.uint8)).to(x.dev)
+    stc = st.StoreCols(gt=x.from_u32(cols[0]), member=x.from_u32(cols[1]),
+                       meta=u8(cols[2]), payload=x.from_u32(cols[3]),
+                       aux=x.from_u32(cols[4]), flags=u8(np.zeros((n, m))))
+    return stc, (x.from_u32(q[0]), x.from_u32(q[1]), u8(q[2]),
+                 x.from_u32(q[3]), x.from_u32(q[4]))
+
+
+def k11_cases(stc, member, gt, meta, payload, aux) -> dict:
+    """K11's modes on one ring and batch: ``{mode: (s_cols, q_cols, plain,
+    bytes, compares a (query, slot) pair, replaces)}``.  The bytes are
+    what the function must read -- every query column and the ring's
+    selecting columns in full ((member, gt) for ``conflict``, the meta for
+    ``identity``, (member, meta) for ``seq_max``), the other columns only
+    at the slots that select (a live slot of a queried (member, gt), an
+    identity slot, a live slot of a queried (member, meta)) -- and the
+    output."""
+    import torch
+
+    from dispersy_tpu_torch.ops import intake
+    (n, m), b = stc.gt.shape, member.shape[1]
+    sm, sg = stc.member.view(torch.int32), stc.gt.view(torch.int32)
+    same_mg = torch.zeros((n, m), dtype=torch.bool, device=sm.device)
+    same_mt = torch.zeros_like(same_mg)
+    for j in range(b):     # the ring slots some query selects
+        qm = member.view(torch.int32)[:, j:j + 1]
+        same_mg |= (sm == qm) & (sg == gt.view(torch.int32)[:, j:j + 1])
+        same_mt |= (sm == qm) & (stc.meta == meta[:, j:j + 1])
+    live = sg != -1
+    n_mg, n_mt = int((same_mg & live).sum()), int((same_mt & live).sum())
+    n_id = int((stc.meta == META_IDENTITY).sum())
+    nb = n * b
+    return {
+        "conflict": (
+            (stc.gt, stc.member, stc.meta, stc.payload, stc.aux),
+            (member, gt, meta, payload, aux),
+            lambda: intake.conflict_plain(stc, member, gt, meta, payload,
+                                          aux),
+            8 * n * m + 9 * n_mg + 17 * nb + nb, 5,
+            "dispersy_tpu/ops/intake.py:104"),
+        "identity": (
+            (stc.meta, stc.member), (member,),
+            lambda: intake.identity_stored_plain(stc, member),
+            n * m + 4 * n_id + 4 * nb + nb, 2,
+            "dispersy_tpu/ops/intake.py:269"),
+        "seq_max": (
+            (stc.gt, stc.member, stc.meta, stc.aux), (member, meta),
+            lambda: intake.seq_stored_max_plain(stc, member, meta),
+            5 * n * m + 8 * n_mt + 5 * nb + 4 * nb, 3,
+            "dispersy_tpu/ops/intake.py:325")}
+
+
+def probe_cases(n_peers: int = 1 << 20, seed: int = 0,
+                dev="cuda") -> dict:
+    """K11's, K2's and K6's call shapes in the rounds at ``n_peers``
+    peers, on random inputs made with a numpy seed, in the form of
+    :func:`store_cases`: K11 per mode at the hardened intake ([N, 24]
+    against [N, 48]); K2's legacy claim build [N, 48] and its serve query
+    on a slot of the [N, 4, W] request inbox, the diet freshness query
+    [N, 24] (one salt a row), the diet serve [N/4, 48] on a cohort's
+    strided block of the digest and the digest rebuild [N/4, 48]; K6 on
+    the landed [N, 24] arrivals.  The Bloom bytes: the W words of each
+    row read (or written) once, the hashes and the mask (the build: the
+    masked hashes only), the salts of a per-row salt, the answers."""
+    import torch
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import bloom
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.u32 import narrow
+
+    x = Draw(seed, dev)
+    leg, diet = slice_config(n_peers), bench_config(n_peers)
+    n, m = n_peers, leg.msg_capacity
+    b = leg.response_budget + leg.push_inbox
+    cases = {}
+    stc, q = probe_inputs(x, n, m, b)
+    for mode, (s_cols, q_cols, plain, moved, _, _) in k11_cases(
+            stc, *q).items():
+        cases[f"probe_{mode}"] = (
+            lambda mode=mode, s_cols=s_cols, q_cols=q_cols:
+            kernels.store_probe(mode, s_cols, q_cols),
+            plain, None, moved, f"store_probe_{mode}")
+
+    bits, k, w = leg.bloom_bits, leg.bloom_hashes, leg.bloom_words
+
+    def build(name, key, h, mask, salt, digest=None):
+        n_set = int(mask.sum())
+        moved = _nbytes(mask) + 4 * n_set + 4 * h.shape[0] * w * (
+            1 if digest is None else 2)
+        if salt is not None and salt.dim():
+            moved += _nbytes(salt)
+        if digest is None:
+            cases[name] = (
+                lambda: kernels.bloom_build(h, mask, bits, k, salt),
+                lambda: bloom.bloom_build_plain(h, mask, bits, k, salt),
+                None, moved, key)
+        else:
+            cases[name] = (
+                lambda: kernels.digest_update(digest, h, mask, bits, k, salt),
+                lambda: bloom.digest_update_plain(digest, h, mask, bits, k,
+                                                  salt), None, moved, key)
+
+    def query(name, words, h, salt):
+        moved = 4 * words.shape[0] * w + _nbytes(h) + h.numel()
+        if salt is not None and salt.dim():
+            moved += _nbytes(salt)
+        cases[name] = (lambda: kernels.bloom_query(words, h, bits, k, salt),
+                       lambda: bloom.bloom_query_plain(words, h, bits, k,
+                                                       salt),
+                       None, moved, "bloom_query")
+
+    def mixed(h, rows, cols):     # half the items built in, half fresh
+        return torch.where(x.flags(0.5, rows, cols), h.view(torch.int32),
+                           x.u32(rows, cols).view(torch.int32)).view(
+                               torch.uint32)
+
+    salt = narrow(torch.tensor(17, device=x.dev))
+    h = x.u32(n, m)
+    build("bloom_build", "bloom_build", h, x.flags(0.7, n, m), salt)
+    built = bloom.bloom_build_plain(h, x.flags(0.7, n, m), bits, k, salt)
+    inbox = torch.stack([built, x.u32(n, w), built, built], dim=1)
+    query("bloom_query", inbox[:, 0], mixed(h, n, m), salt)
+    bd = diet.response_budget + diet.push_inbox
+    coh, blk = diet.store.cohorts, n // diet.store.cohorts
+    dig = narrow(x.u32(n, w).view(torch.int32).long()
+                 & x.u32(n, w).view(torch.int32).long())
+    ep = x.u32(n, hi=4)
+    hd = x.u32(n, bd)
+    build("digest_update", "digest_update", hd, x.flags(0.4, n, bd), ep,
+          digest=dig)
+    query("bloom_query_diet_fresh", dig, mixed(hd, n, bd), ep)
+    salt = narrow(torch.tensor(0xFFFFFFFF, device=x.dev))
+    rec = x.u32(blk, m)
+    query("bloom_query_diet_serve", st.cohort_take(dig, 1, coh), rec, salt)
+    build("bloom_build_diet_rebuild", "bloom_build", rec,
+          x.flags(0.7, blk, m), salt)
+    return cases
+
+
 def profile_store(n_peers: int = 1 << 20, reps: int = 20,
-                  seed: int = 0) -> dict:
-    """Each of :func:`store_cases` on the card: the kernel held bit for
-    bit against its plain version, then the kernel (``reps`` launches),
-    K3's ``torch.sort`` yardstick (``reps``) and the plain version (5)
-    timed with CUDA events (medians), beside the bytes bound at 3.35
-    TB/s.  ``python -m dispersy_tpu_torch.profiling --store`` prints it
-    as one JSON line."""
+                  seed: int = 0, cases: str = "store") -> dict:
+    """Each of :func:`store_cases` (``cases="store"``: K3, K9) or of
+    :func:`probe_cases` (``"probe"``: K11, K2, K6) on the card: the kernel
+    held bit for bit against its plain version, then the kernel (``reps``
+    launches), K3's ``torch.sort`` yardstick (``reps``) and the plain
+    version (5) timed with CUDA events (medians), beside the bytes bound
+    at 3.35 TB/s.  ``python -m dispersy_tpu_torch.profiling --store``
+    (``--probe``) prints it as one JSON line."""
     import subprocess
 
     import torch
@@ -934,7 +1102,8 @@ def profile_store(n_peers: int = 1 << 20, reps: int = 20,
            "device": torch.cuda.get_device_name(0),
            "kernels": str(Path(kernels.__file__).resolve().parent),
            "cases": {}}
-    for name, (kernel, plain, yardstick, moved, key) in store_cases(
+    make = {"store": store_cases, "probe": probe_cases}[cases]
+    for name, (kernel, plain, yardstick, moved, key) in make(
             n_peers, seed).items():
         if not _same(kernel(), plain()):
             raise AssertionError(f"{name}: the kernel differs from its "
@@ -948,7 +1117,7 @@ def profile_store(n_peers: int = 1 << 20, reps: int = 20,
     return out
 
 
-def profile_store_roots(roots: list) -> list:
+def profile_store_roots(roots: list, cases: str = "store") -> list:
     """:func:`profile_store` once for each checkout in ``roots``, in turn,
     each in a process of its own whose ``dispersy_tpu_torch`` is the
     checkout's (this file's cases on that checkout's kernels and plain
@@ -965,8 +1134,9 @@ def profile_store_roots(roots: list) -> list:
                 "'store_profile', {f!r}); mod = "
                 "importlib.util.module_from_spec(spec); "
                 "spec.loader.exec_module(mod); "
-                "print('STORE ' + json.dumps(mod.profile_store()))").format(
-                    r=root, f=str(Path(__file__).resolve()))
+                "print('STORE ' + json.dumps(mod.profile_store("
+                "cases={c!r})))").format(
+                    r=root, f=str(Path(__file__).resolve()), c=cases)
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
@@ -994,6 +1164,10 @@ if __name__ == "__main__":
                        help="time K3 and K9 at each call shape of the 1M "
                        "rounds (profile_store); with checkout ROOTs, once "
                        "on each in turn")
+    which.add_argument("--probe", nargs="*", metavar="ROOT",
+                       help="time K11, K2 and K6 at each call shape of the "
+                       "1M rounds (profile_store's probe cases); with "
+                       "checkout ROOTs, once on each in turn")
     which.add_argument("--diet", action="store_true",
                        help="trace the byte-diet round of bench_config")
     which.add_argument("--timeline", action="store_true",
@@ -1007,12 +1181,13 @@ if __name__ == "__main__":
     if args.delivery:
         print(json.dumps(profile_delivery()))
         raise SystemExit(0)
-    if args.store is not None:
-        runs = (profile_store_roots(args.store) if args.store
-                else [profile_store()])
-        for run in runs:
-            print(json.dumps(run), flush=True)
-        raise SystemExit(0)
+    for cases, roots in (("store", args.store), ("probe", args.probe)):
+        if roots is not None:
+            runs = (profile_store_roots(roots, cases) if roots
+                    else [profile_store(cases=cases)])
+            for run in runs:
+                print(json.dumps(run), flush=True)
+            raise SystemExit(0)
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
                                     hardened=args.hardened, chaos=args.chaos,
                                     rounds=5 if args.timeline else 3)))

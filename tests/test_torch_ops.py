@@ -222,6 +222,49 @@ def test_bloom_build_query_probes(n, m, w, k, salted):
     same([bloom.unpack_bits(bloom.pack_bits(to_t(dense)))], [dense])
 
 
+def _bloom_bits_in_use() -> list:
+    """Every Bloom size of the configs the port runs and of the test
+    shapes, with the corners ``chip_smoke.py`` holds the kernels at."""
+    from dispersy_tpu_torch import kernels, profiling
+    cfgs = (CommunityConfig(), profiling.slice_config(4096),
+            profiling.bench_config(4096), profiling.permissioned_config(4096),
+            profiling.hardened_config(4096), profiling.chaos_config(4096, 0),
+            profiling.chaos_config(4096))
+    return sorted({c.bloom_bits for c in cfgs}
+                  | {32 * w for _, _, w, _ in BLOOM_SHAPES}
+                  | {96, 480, 2464, 32 * kernels.BLOOM_MAX_WORDS})
+
+
+def reciprocal_mod(x: np.ndarray, n_bits: int) -> np.ndarray:
+    """csrc/bloom.cu's ``mod_of``, step for step, on u32 numerators."""
+    from dispersy_tpu_torch import kernels
+    magic, shift = kernels.bloom_reciprocal(n_bits)
+    x = x.astype(np.uint64)
+    t = (x * np.uint64(magic)) >> np.uint64(32)
+    q = (t + ((x - t) >> np.uint64(1))) >> np.uint64(shift)
+    return (x - q * np.uint64(n_bits)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n_bits", _bloom_bits_in_use())
+def test_bloom_reciprocal_remainder(n_bits):
+    """csrc/bloom.cu takes a probe's ``x % n_bits`` as a multiply-high by
+    the host's reciprocal (``kernels.bloom_reciprocal``): exact for every
+    u32 numerator, since the probe chain ``h1 + j * h2`` wraps mod 2^32
+    -- on the boundaries (0, d - 1, d, the multiples of d and their
+    neighbours, 2^31, 2^32 - 1) and on 2^20 numpy-seeded values."""
+    d, top = n_bits, (1 << 32) - 1
+    qs = np.unique(np.linspace(0, top // d, 4097).astype(np.uint64))
+    x = np.concatenate([
+        np.array([0, 1, d - 1, d, d + 1, (1 << 31) - 1, 1 << 31,
+                  (1 << 31) + 1, top - 1, top], np.uint64),
+        *(np.clip(qs.astype(np.int64) * d + off, 0, top).astype(np.uint64)
+          for off in (-1, 0, 1)),
+        np.random.default_rng(n_bits).integers(0, 1 << 32, size=1 << 20,
+                                               dtype=np.uint64)])
+    got = reciprocal_mod(x, d)
+    assert np.array_equal(got, (x % np.uint64(d)).astype(np.uint32))
+
+
 # ---- K3 store_insert and the store helpers ---------------------------------
 
 def ring(rs, n, m, keys=200, members=6):
