@@ -16,7 +16,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a salt a row, strided inbox and cohort views; K3 at the intake
    merge and the one-record insert, and K3's corners: rings out of
    order, ties, empty and overflowing rows, B = 1, 8, 24, M + B = 256,
-   history groups across ring and batch, u16 aux), the byte-diet round's
+   history groups across ring and batch, u16 aux; K4 at the outbox and
+   the forward buffer, and K4's corners: widths 1-256 by W = 1-48, every
+   entry spilled, no live entry, negative slots, k = 1 and 8; K5, and
+   its corners: B = 1-40 by M = 1-48, rows out of order among sorted
+   ones, EMPTY keys, all-EMPTY rings, keys at 2^31 and 0xFFFFFFFE),
+   the byte-diet round's
    (u16 aux columns, per-row Bloom salts, the cohort block, the staging
    buffer), the permissioned round's (the [N, 8] grant tables, the store
    replays in each K9 mode at the intake's and the retro pass's shapes,
@@ -62,7 +67,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must shed in the timed rounds) and unsharded (3 + 5 rounds, K1 with
    admission classes), each printing its shed, recovery and health
    totals and the count of store rows that break K3's merge-path
-   invariant (``ring_unordered_rows``, expected 0).
+   invariant (``ring_unordered_rows``, expected 0); the paths that run
+   K5's ``intake_checks`` also count, over the timed rounds, the store
+   rows that enter a round off its search path
+   (``intake_unsorted_rows``, expected 0).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -551,48 +559,98 @@ def check_store_corners(x: Draw, reps: int) -> list:
     return []
 
 
+def compact_row(name, cols, slot, width, reps) -> dict:
+    """A K4 kernels-JSON row: the kernel held against its plain version,
+    then both timed.  Its bytes: the slot map, the entries whose slot is
+    below the width, and every output."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    got = kernels.rank_compact_many(cols, slot, width)
+    kept = int(((slot >= 0) & (slot < width)).sum())
+    moved = (nbytes(slot) + kept * sum(c.element_size() for c, _ in cols)
+             + nbytes(*got))
+    return timed_entry(
+        name, "cuda", "dispersy_tpu_torch/csrc/compact.cu",
+        "dispersy_tpu/ops/store.py:140", got,
+        st.rank_compact_many_plain(cols, slot, width),
+        lambda: kernels.rank_compact_many(cols, slot, width),
+        lambda: st.rank_compact_many_plain(cols, slot, width), moved, reps,
+        kernel="rank_compact_many")
+
+
+def rank_slots(x: Draw, p, rows, w, width):
+    """An engine-style slot map: each entry kept with probability ``p``
+    at its rank among the kept, the rest at ``width``."""
+    torch = x.torch
+    keep = x.flags(p, rows, w)
+    rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    return keep, torch.where(keep & (rank < width), rank,
+                             width).to(torch.int32)
+
+
 def check_compact(x: Draw, reps: int) -> list:
     """K4 at the responder's outbox (six columns, one slot map over the
-    store width, width = response_budget), timed; and at the forward
-    buffer (five columns over the intake batch, width = forward_buffer).
-    Its bytes: the slot map, the entries whose slot is below the width,
-    and every output."""
-    torch = x.torch
-    from dispersy_tpu_torch import kernels
+    store width, width = response_budget) and at the forward buffer (five
+    columns over the intake batch, width = forward_buffer), each timed."""
     from dispersy_tpu_torch.ops import store as st
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     store, batch = store_inputs(x)
-
-    def slots(p, w, width):
-        keep = x.flags(p, n, w)
-        rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
-        return keep, torch.where(keep & (rank < width), rank,
-                                 width).to(torch.int32)
-
     b = cfg.response_budget
-    missing, slot = slots(0.3, m, b)
+    missing, slot = rank_slots(x, 0.3, n, m, b)
     cols = [(store.gt, 0xFFFFFFFF), (store.member, 0xFFFFFFFF),
             (store.meta, 0xFF), (store.payload, 0xFFFFFFFF),
             (store.aux, 0), (missing, False)]
-    got = kernels.rank_compact_many(cols, slot, b)
     fb = cfg.forward_buffer
-    _, fslot = slots(0.5, batch.gt.shape[1], fb)
+    _, fslot = rank_slots(x, 0.5, n, batch.gt.shape[1], fb)
     fcols = [(c, st.empty_of(c.dtype)) for c in batch[:5]]
-    fgot = kernels.rank_compact_many(fcols, fslot, fb)
-    kept = int((slot < b).sum())
-    moved = (nbytes(slot) + kept * sum(c.element_size() for c, _ in cols)
-             + nbytes(*got))
-    return [timed_entry(
-        "rank_compact_many", "cuda", "dispersy_tpu_torch/csrc/compact.cu",
-        "dispersy_tpu/ops/store.py:140", got + fgot,
-        st.rank_compact_many_plain(cols, slot, b)
-        + st.rank_compact_many_plain(fcols, fslot, fb),
-        lambda: kernels.rank_compact_many(cols, slot, b),
-        lambda: st.rank_compact_many_plain(cols, slot, b), moved, reps)]
+    return [compact_row("rank_compact_many", cols, slot, b, reps),
+            compact_row("rank_compact_many_forward", fcols, fslot, fb, reps)]
+
+
+def to_card(x: Draw, a):
+    """A numpy array on the card (u32 and u16 through their signed
+    views)."""
+    torch = x.torch
+    a = x.np.ascontiguousarray(a)
+    if a.dtype == x.np.uint32:
+        return x.from_u32(a)
+    if a.dtype == x.np.uint16:
+        return torch.from_numpy(a.view(x.np.int16)).to(x.dev).view(
+            torch.uint16)
+    return torch.from_numpy(a).to(x.dev)
+
+
+def check_compact_corners(x: Draw, reps: int) -> list:
+    """K4 on the inputs its gather branches on, untimed, bit-equal to the
+    plain version at N = 2^16 + 3 (not a multiple of a block's rows):
+    ``profiling.compact_corners`` with negative slots down to -2^31
+    (widths above W leave slots no entry can reach, so an output the
+    kernel did not write would show)."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import compact_arrays, compact_corners
+    n = (1 << 16) + 3
+    cases = compact_corners(negative=(-1, -2, -7, -(1 << 31)))
+    for name, kw in cases.items():
+        w, width = kw.pop("w"), kw.pop("width")
+        slot, cols = compact_arrays(x.rs, n, w, width, **kw)
+        slot = to_card(x, slot)
+        cols = [(to_card(x, c), f) for c, f in cols]
+        err = max_abs_err(kernels.rank_compact_many(cols, slot, width),
+                          st.rank_compact_many_plain(cols, slot, width))
+        if err != 0:
+            fail(f"kernel rank_compact_many corner {name} disagrees with "
+                 f"its plain version (max abs err {err})")
+    print(f"kernel rank_compact_many corners: mismatches 0 in {len(cases)} "
+          "cases (untimed)", flush=True)
+    return []
 
 
 def check_intake(x: Draw, reps: int) -> list:
-    """K5 on a ring and a batch of the intake width."""
+    """K5 on a ring and a batch of the intake width.  The operations: a
+    binary search of each entry in its ring and one warp match."""
+    import math
+
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import intake
     store, batch = store_inputs(x)
@@ -608,17 +666,43 @@ def check_intake(x: Draw, reps: int) -> list:
     if not bool(got[0].any()) or not bool(got[1].any()):
         fail("intake inputs never hit")
     return [timed_entry(
-        "intake_checks", "triton",
-        "dispersy_tpu_torch/kernels/intake_triton.py",
+        "intake_checks", "cuda", "dispersy_tpu_torch/csrc/intake.cu",
         "dispersy_tpu/ops/intake.py:80", got, plain(),
         lambda: kernels.intake_checks(*args), plain,
-        nbytes(*args) + 2 * n * b, reps, ops=2 * n * b * (m + b))]
+        nbytes(*args) + 2 * n * b, reps,
+        ops=n * b * (math.ceil(math.log2(m)) + 2))]
+
+
+def check_intake_corners(x: Draw, reps: int) -> list:
+    """K5 on the inputs its two in_store paths and its chunked match
+    branch on, untimed, bit-equal to the plain version at N = 2^16 + 3
+    (not a multiple of a block's rows): ``profiling.INTAKE_CORNERS``,
+    each with ``intake_checks`` and ``dup_earlier`` alone."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.profiling import INTAKE_CORNERS, intake_arrays
+    n = (1 << 16) + 3
+    for name, kw in INTAKE_CORNERS.items():
+        kw = dict(kw)
+        sg, sm, qm, qg, ok = (to_card(x, a) for a in intake_arrays(
+            x.rs, n, kw.pop("m"), kw.pop("b"), **kw))
+        want = (intake.in_store_plain(sg, sm, qm, qg),
+                intake.dup_earlier_plain(qm, qg, ok))
+        err = max(max_abs_err(kernels.intake_checks(sg, sm, qm, qg, ok),
+                              want),
+                  max_abs_err([kernels.dup_earlier(qm, qg, ok)], want[1:]))
+        if err != 0:
+            fail(f"kernel intake corner {name} disagrees with its plain "
+                 f"version (max abs err {err})")
+    print(f"kernel intake_checks / dup_earlier corners: mismatches 0 in "
+          f"{len(INTAKE_CORNERS)} cases (untimed)", flush=True)
+    return []
 
 
 KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom,
                  check_bloom_corners,
                  check_store, check_store_corners, check_compact,
-                 check_intake)
+                 check_compact_corners, check_intake, check_intake_corners)
 
 # ---- phase 2, the byte-diet round's call shapes ------------------------------
 
@@ -780,46 +864,32 @@ def check_diet_store(x: Draw, reps: int) -> list:
 def check_diet_compact(x: Draw, reps: int) -> list:
     """K4 at the staggered serve's outbox (a cohort block's [N/4, 48]
     gathered rings to width 8, six columns with the u16 aux), timed; and
-    at the forward buffer ([N, 24] to width 4, the aux at u16)."""
-    torch = x.torch
+    at the forward buffer ([N, 24] to width 4, the aux at u16),
+    untimed."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
     from dispersy_tpu_torch.profiling import diet_cols
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     blk = n // cfg.store.cohorts
     ring = diet_cols(x, blk, m, prefix=False)
-
-    def slots(p, rows, w, width):
-        keep = x.flags(p, rows, w)
-        rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
-        return keep, torch.where(keep & (rank < width), rank,
-                                 width).to(torch.int32)
-
     b = cfg.response_budget
-    missing, slot = slots(0.3, blk, m, b)
+    missing, slot = rank_slots(x, 0.3, blk, m, b)
     cols = [(ring.gt, 0xFFFFFFFF), (ring.member, 0xFFFFFFFF),
             (ring.meta, 0xFF), (ring.payload, 0xFFFFFFFF), (ring.aux, 0),
             (missing, False)]
-    got = kernels.rank_compact_many(cols, slot, b)
     fb = cfg.forward_buffer
     bw = cfg.response_budget + cfg.push_inbox
-    _, fslot = slots(0.5, n, bw, fb)
+    _, fslot = rank_slots(x, 0.5, n, bw, fb)
     fcols = [(x.u32(n, bw), 0xFFFFFFFF), (x.u32(n, bw), 0xFFFFFFFF),
              (x.u8(n, bw), 0xFF), (x.u32(n, bw), 0xFFFFFFFF),
              (x.u16(n, bw), 0xFFFF)]
-    fgot = kernels.rank_compact_many(fcols, fslot, fb)
-    kept = int((slot < b).sum())
-    moved = (nbytes(slot) + kept * sum(c.element_size() for c, _ in cols)
-             + nbytes(*got))
-    return [timed_entry(
-        "rank_compact_many_diet_serve", "cuda",
-        "dispersy_tpu_torch/csrc/compact.cu", "dispersy_tpu/ops/store.py:140",
-        got + fgot,
-        st.rank_compact_many_plain(cols, slot, b)
-        + st.rank_compact_many_plain(fcols, fslot, fb),
-        lambda: kernels.rank_compact_many(cols, slot, b),
-        lambda: st.rank_compact_many_plain(cols, slot, b), moved, reps,
-        kernel="rank_compact_many")]
+    err = max_abs_err(kernels.rank_compact_many(fcols, fslot, fb),
+                      st.rank_compact_many_plain(fcols, fslot, fb))
+    if err != 0:
+        fail(f"kernel rank_compact_many at the diet's forward buffer "
+             f"disagrees with its plain version (max abs err {err})")
+    return [compact_row("rank_compact_many_diet_serve", cols, slot, b,
+                        reps)]
 
 
 def check_diet_intake(x: Draw, reps: int) -> list:
@@ -835,12 +905,12 @@ def check_diet_intake(x: Draw, reps: int) -> list:
     if not bool(got.any()):
         fail("dup_earlier inputs never hit")
     return [timed_entry(
-        "dup_earlier", "triton", "dispersy_tpu_torch/kernels/intake_triton.py",
+        "dup_earlier", "cuda", "dispersy_tpu_torch/csrc/intake.cu",
         "dispersy_tpu/ops/intake.py:137", [got],
         [intake.dup_earlier_plain(member, gt, ok)],
         lambda: kernels.dup_earlier(member, gt, ok),
         lambda: intake.dup_earlier_plain(member, gt, ok),
-        nbytes(member, gt, ok) + n * b, reps, ops=2 * n * b * b)]
+        nbytes(member, gt, ok) + n * b, reps, ops=n * b)]
 
 
 DIET_KERNEL_CHECKS = (check_diet_deliver, check_diet_bloom, check_diet_stage,
@@ -1397,7 +1467,8 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
-    from dispersy_tpu_torch.profiling import run_creates
+    from dispersy_tpu_torch.profiling import (intake_unsorted_rows,
+                                              run_creates)
     from dispersy_tpu_torch.storediet import phase_of
 
     torch.cuda.reset_peak_memory_stats()
@@ -1418,7 +1489,11 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     chaos = cfg.faults.health_checks
     shed0 = chaos_totals(state)["xshard_shed"] if chaos else 0
     times, phases = [], []
+    searched = "intake_checks" in kernels_needed
+    off_search = 0
     for rnd in range(warmup, warmup + rounds):
+        if searched:
+            off_search += intake_unsorted_rows(state)
         a = time.perf_counter()
         state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
@@ -1496,6 +1571,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
            "phases": phases, "peak_mem_gib": peak / 2 ** 30,
            "coverage": cov, "store_fill": snap["store_fill"],
            "ring_unordered_rows": unordered,
+           **({"intake_unsorted_rows": off_search} if searched else {}),
            "walk_success_rate": snap["walk_success_rate"],
            **extra,
            "launches": launches, "launches_per_round": {

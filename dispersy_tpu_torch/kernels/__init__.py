@@ -3,8 +3,7 @@
 The CUDA sources live in ``dispersy_tpu_torch/csrc``.  Each is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 under ``build/kernels/`` (git-ignored) at first use -- one ``nvcc`` per
-source, all started together -- and loaded with ``ctypes``.  The Triton
-kernel (K5, :mod:`.intake_triton`) is imported only when it is launched.
+source, all started together -- and loaded with ``ctypes``.
 
 Every wrapper here takes CUDA tensors only: it checks device, dtype,
 shape and contiguity and raises :class:`KernelError` on anything its
@@ -31,7 +30,7 @@ from dispersy_tpu_torch.exceptions import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("deliver", "bloom", "store", "compact", "stage", "timeline",
-           "remove", "ragged", "match", "probe")
+           "remove", "ragged", "match", "probe", "intake")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -58,6 +57,11 @@ MATCH_MAX_WIDTH = 256      # csrc/match.cu MAX_W (16 B a slot, up to
                            # 32 rows a block in shared memory)
 PROBE_MAX_WIDTH = 256      # csrc/probe.cu MAX_W (24 B a slot, up to 32
                            # rows a block in shared memory)
+COMPACT_MAX_WIDTH = 8192   # csrc/compact.cu MAX_INV (the inverse slot
+                           # map of a block's rows in shared memory)
+COMPACT_MAX_W = 32767      # csrc/compact.cu MAX_W (entry index in int16)
+INTAKE_MAX_WIDTH = 256     # csrc/intake.cu MAX_M (8 B a slot in shared
+                           # memory)
 
 
 def reset_launches() -> None:
@@ -504,13 +508,16 @@ def timeline_check_grant(tab, member, mask, gt, n_meta: int, perm: int):
 # ---- K4: rank compaction ---------------------------------------------------
 
 def rank_compact_many(cols_fills, slot, width: int):
-    """One-warp-per-row slot scatter of several columns (csrc/compact.cu)."""
+    """Inverse-slot gather of several columns (csrc/compact.cu): every
+    output element is written once, by the kernel."""
     n, w = slot.shape
     _req(slot, "rank_compact_many.slot", (torch.int32,), (n, w))
     if not 1 <= len(cols_fills) <= MAX_COLS:
         raise KernelError(f"rank_compact_many: 1..{MAX_COLS} columns")
-    if width < 1:
-        raise KernelError("rank_compact_many: width must be >= 1")
+    if not (1 <= width <= COMPACT_MAX_WIDTH and 1 <= w <= COMPACT_MAX_W):
+        raise KernelError(f"rank_compact_many: width {width} not in [1, "
+                          f"{COMPACT_MAX_WIDTH}] or W {w} not in [1, "
+                          f"{COMPACT_MAX_W}]")
     srcs, outs, fills = [], [], []
     for i, (c, fill) in enumerate(cols_fills):
         _req(c, f"rank_compact_many.cols[{i}]", _COL_DTYPES, (n, w))
@@ -560,35 +567,48 @@ def store_stage(staging, new, new_mask):
     return (*out, landed, n_dropped)
 
 
-# ---- K5: intake checks (Triton) ---------------------------------------------
+# ---- K5: intake checks ------------------------------------------------------
+
+def _intake(what: str, store_gt, store_member, member, gt, ok):
+    """Launch csrc/intake.cu; with ``store_gt`` None, ``dup_earlier``
+    alone (no ring read, no ``in_store`` answer)."""
+    n, b = gt.shape
+    _req(member, f"{what}.member", (torch.uint32,), (n, b))
+    _req(gt, f"{what}.gt", (torch.uint32,), (n, b))
+    _req(ok, f"{what}.ok", (torch.bool,), (n, b))
+    m = 0
+    if store_gt is not None:
+        m = store_gt.shape[1]
+        _req(store_gt, f"{what}.store_gt", (torch.uint32,), (n, m))
+        _req(store_member, f"{what}.store_member", (torch.uint32,), (n, m))
+        if not 1 <= m <= INTAKE_MAX_WIDTH:
+            raise KernelError(f"{what}: M = {m} not in [1, "
+                              f"{INTAKE_MAX_WIDTH}]")
+    if b < 1:
+        raise KernelError(f"{what}: B must be >= 1")
+    dup = torch.empty((n, b), dtype=torch.bool, device=gt.device)
+    ins = (None if store_gt is None else
+           torch.empty((n, b), dtype=torch.bool, device=gt.device))
+    err = _fn("intake", "dk_intake", 11)(
+        *[None if t is None else t.data_ptr() for t in (
+            store_gt, store_member, member, gt, ok, ins, dup)], n, m, b,
+        _stream())
+    _check(err, "intake", what)
+    return dup if ins is None else (ins, dup)
+
 
 def intake_checks(store_gt, store_member, member, gt, ok):
-    """(in_store, dup_earlier) through the Triton kernel
-    (:mod:`.intake_triton`)."""
-    n, b = gt.shape
-    m = store_gt.shape[1]
-    _req(store_gt, "intake.store_gt", (torch.uint32,), (n, m))
-    _req(store_member, "intake.store_member", (torch.uint32,), (n, m))
-    _req(member, "intake.member", (torch.uint32,), (n, b))
-    _req(gt, "intake.gt", (torch.uint32,), (n, b))
-    _req(ok, "intake.ok", (torch.bool,), (n, b))
-    if m < 1 or b < 1:
-        raise KernelError("intake_checks: M and B must be >= 1")
-    out = _intake_launch("intake_checks", store_gt, store_member, member,
-                         gt, ok)
+    """(in_store, dup_earlier), each bool [N, B]: a binary search of each
+    entry in its row's sorted ring (every slot compared in a row out of
+    order) and a warp match over the batch (csrc/intake.cu)."""
+    out = _intake("intake_checks", store_gt, store_member, member, gt, ok)
     LAUNCHES["intake_checks"] += 1
     return out
 
 
 def dup_earlier(member, gt, ok):
     """K5 without a store operand: ``dup_earlier`` alone, bool [N, B]."""
-    n, b = gt.shape
-    _req(member, "dup_earlier.member", (torch.uint32,), (n, b))
-    _req(gt, "dup_earlier.gt", (torch.uint32,), (n, b))
-    _req(ok, "dup_earlier.ok", (torch.bool,), (n, b))
-    if b < 1:
-        raise KernelError("dup_earlier: B must be >= 1")
-    out = _intake_launch("dup_earlier", None, None, member, gt, ok)
+    out = _intake("dup_earlier", None, None, member, gt, ok)
     LAUNCHES["dup_earlier"] += 1
     return out
 
@@ -690,14 +710,3 @@ def store_probe(mode: str, s_cols, q_cols):
     LAUNCHES[f"store_probe_{mode}"] += 1
     return out
 
-
-def _intake_launch(what: str, *args):
-    from dispersy_tpu_torch.kernels import intake_triton
-    # Triton raises on a failed compile or launch; the stream query
-    # raises on an error the card has already reported (no wait).
-    try:
-        out = intake_triton.launch(*args)
-        torch.cuda.current_stream().query()
-    except Exception as exc:
-        raise KernelError(f"{what}: {exc}") from exc
-    return out

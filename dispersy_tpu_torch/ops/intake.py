@@ -4,12 +4,13 @@ Timeline's store replays (port of ``in_store``, ``dup_earlier``,
 ``stored_meta_of``, ``conflict``, ``identity_stored`` and
 ``seq_stored_max`` in ``dispersy_tpu/ops/intake.py``).
 
-``in_store`` and ``dup_earlier`` are compare-and-any reductions per (row, batch entry): over the M
-store slots for ``in_store``, over the earlier batch entries for
-``dup_earlier``.  :func:`intake_checks` is the wrapper that computes both
-in one pass -- on a CUDA tensor through the Triton kernel in
-``kernels/intake_triton.py``, on a CPU tensor through the plain broadcast
-forms beside it.  :func:`dup_earlier` is the same kernel in its mode
+``in_store`` and ``dup_earlier`` are compare-and-any reductions per
+(row, batch entry): over the M store slots for ``in_store``, over the
+earlier batch entries for ``dup_earlier``.  :func:`intake_checks` is the
+wrapper that computes both in one pass -- on a CUDA tensor through the
+CUDA kernel of ``csrc/intake.cu`` (K5: a binary search of the row's
+sorted ring, a warp match over the batch), on a CPU tensor through the
+plain broadcast forms beside it.  :func:`dup_earlier` is the same kernel in its mode
 without a store operand: under the byte-diet store the "already stored?"
 test is a digest query, so a quiet round reads no ring bytes.  Only
 equality is tested, so u32 columns are compared through their int32 bit

@@ -361,9 +361,8 @@ def pin_gt(payload: np.ndarray, authors: np.ndarray, rows) -> np.ndarray:
     return out
 
 
-# Every device function of the hand-written kernels (csrc/*.cu and
-# kernels/intake_triton.py) is named with this prefix, which gives the
-# profile's own-kernel share.
+# Every device function of the hand-written kernels (csrc/*.cu) is named
+# with this prefix, which gives the profile's own-kernel share.
 OWN_KERNEL_PREFIX = "dk_"
 
 
@@ -1078,15 +1077,270 @@ def probe_cases(n_peers: int = 1 << 20, seed: int = 0,
     return cases
 
 
+def intake_unsorted_rows(state) -> int:
+    """Store rows whose raw (gt, member) keys are not non-decreasing over
+    all M slots: the rows that K5's ``in_store`` compares slot by slot
+    instead of searching (csrc/intake.cu; none on the engine's rows)."""
+    import torch
+    g = state.store_gt.view(torch.int32).long() & 0xFFFFFFFF
+    mb = state.store_member.view(torch.int32).long() & 0xFFFFFFFF
+    down = (g[:, 1:] < g[:, :-1]) | ((g[:, 1:] == g[:, :-1])
+                                     & (mb[:, 1:] < mb[:, :-1]))
+    return int(down.any(1).sum())
+
+
+# K4's and K5's corner inputs as numpy arrays: the CPU tests hand them to
+# both packages, chip_smoke.py moves them to the card.
+COMPACT_FILLS = {np.dtype(np.uint32): 0xFFFFFFFF, np.dtype(np.uint16): 0,
+                 np.dtype(np.uint8): 0xFF, np.dtype(np.bool_): False}
+COMPACT_DTYPES = (np.uint32, np.uint16, np.uint8, np.bool_)
+HIGH_KEYS = np.array([0, 1, 2, 1 << 31, (1 << 31) + 1, 0xFFFFFFFE],
+                     np.uint64)
+
+
+def compact_arrays(rs, n: int, w: int, width: int, p: float = 0.5,
+                   dtypes=COMPACT_DTYPES, slots: str = "rank",
+                   negative=(-1,)):
+    """A [n, w] int32 slot map and ``[(column, fill), ...]`` for
+    ``rank_compact_many``.  ``slots``: ``"rank"`` keeps each entry with
+    probability ``p`` at its rank among the kept, the others and the
+    overflow at ``width`` (the engine's maps); ``"spilled"`` sends every
+    entry to ``width``; ``"none"`` every entry to -1; ``"negative"`` a
+    rank map with a fifth of its entries drawn from ``negative``."""
+    keep = rs.random((n, w)) < p
+    rank = np.cumsum(keep, axis=1) - 1
+    slot = np.where(keep & (rank < width), rank, width)
+    if slots == "spilled":
+        slot = np.full((n, w), width)
+    elif slots == "none":
+        slot = np.full((n, w), -1)
+    elif slots == "negative":
+        slot = np.where(rs.random((n, w)) < 0.2,
+                        rs.choice(np.asarray(negative), size=(n, w)), slot)
+    cols = []
+    for dt in map(np.dtype, dtypes):
+        if dt == np.bool_:
+            c = rs.random((n, w)) < 0.5
+        else:
+            c = rs.integers(0, np.iinfo(dt).max + 1, size=(n, w),
+                            dtype=np.uint64).astype(dt)
+        cols.append((c, COMPACT_FILLS[dt]))
+    return slot.astype(np.int32), cols
+
+
+# The column patterns of K4's call sites (csrc/compact.cu specialises
+# them): the outbox and the recovery pass with a u32 or a u16 aux, the
+# forward buffer with either aux, the timeline's auth table.
+COMPACT_PATTERNS = {
+    "outbox": (np.uint32, np.uint32, np.uint8, np.uint32, np.uint32,
+               np.bool_),
+    "outbox_u16": (np.uint32, np.uint32, np.uint8, np.uint32, np.uint16,
+                   np.bool_),
+    "forward": (np.uint32, np.uint32, np.uint8, np.uint32, np.uint32),
+    "forward_u16": (np.uint32, np.uint32, np.uint8, np.uint32, np.uint16),
+    "auth": (np.uint32, np.uint32, np.uint32, np.bool_, np.uint32)}
+
+
+def compact_corners(negative=(-1,)) -> dict:
+    """K4's corners, ``{name: compact_arrays keywords with w and width}``:
+    widths 1, 8, 48 and 256 by W = 1, 31, 33 and 48 (widths above W
+    leave slots no entry reaches) with one column of each size in the
+    outbox's u16 pattern; each call-site pattern at its shape; every
+    entry spilled (slot == width); no live entry (every slot -1); slots
+    drawn from ``negative`` among the ranks; every output slot filled;
+    k = 1 and k = 8 (a mix no call site uses)."""
+    out = {f"width{width}_w{w}": dict(w=w, width=width,
+                                      dtypes=COMPACT_PATTERNS["outbox_u16"])
+           for width in (1, 8, 48, 256) for w in (1, 31, 33, 48)}
+    out.update({f"pattern_{k}": dict(w=24 if k.startswith("forward") else
+                                     48, width=4 if k.startswith("forward")
+                                     else 8, dtypes=v)
+                for k, v in COMPACT_PATTERNS.items()})
+    out.update({
+        "all_spilled": dict(w=48, width=8, slots="spilled"),
+        "no_live": dict(w=48, width=8, slots="none"),
+        "negative": dict(w=48, width=8, slots="negative",
+                         negative=negative),
+        "negative_outbox": dict(w=48, width=8, slots="negative",
+                                negative=negative,
+                                dtypes=COMPACT_PATTERNS["outbox"]),
+        "full": dict(w=48, width=8, p=1.0),
+        "full_recovery": dict(w=48, width=48, p=1.0,
+                              dtypes=COMPACT_PATTERNS["outbox"]),
+        "k1": dict(w=48, width=8, dtypes=(np.uint8,)),
+        "k8": dict(w=33, width=8, dtypes=(np.uint32, np.uint8, np.uint16,
+                                          np.bool_, np.uint32, np.uint32,
+                                          np.uint8, np.uint16))})
+    return out
+
+
+# K5's corners, ``{name: intake_arrays keywords with m and b}``: B = 1,
+# 24, 32 and 40 by M = 1, 45 and 48 with a third of the rows shuffled
+# among sorted ones; keys at 0, 2^31 and 0xFFFFFFFE; all-EMPTY rings;
+# keys repeated in ring and batch; keys that collide under the dedup's
+# hash (EMPTY-gt entries against EMPTY slots in every case).
+INTAKE_CORNERS = {f"b{b}_m{m}": dict(b=b, m=m, unsorted=0.3)
+                  for b in (1, 24, 32, 40) for m in (1, 45, 48)}
+INTAKE_CORNERS.update({
+    "high_keys": dict(b=24, m=48, high=True, unsorted=0.3),
+    "high_keys_b40_m45": dict(b=40, m=45, high=True, unsorted=0.3),
+    "empty_rings": dict(b=24, m=48, empty_rings=True),
+    "repeats": dict(b=24, m=48, keys=3, members=2, unsorted=0.3),
+    "hash_collisions": dict(b=24, m=48, collide=True),
+    "hash_collisions_b40": dict(b=40, m=45, collide=True, unsorted=0.3)})
+
+
+# csrc/intake.cu's dedup hash, gt * HASH_GT ^ member * HASH_MEMBER (mod
+# 2^32): :func:`intake_arrays` builds keys that collide under it.
+INTAKE_HASH_GT, INTAKE_HASH_MEMBER = 0x9E3779B1, 0x85EBCA6B
+
+
+def colliding_keys(rs, count: int) -> tuple:
+    """``count`` distinct (gt, member) keys with one dedup hash: random
+    gts, each member solved for the first key's hash."""
+    gt = rs.integers(0, 1 << 32, size=count, dtype=np.uint64)
+    inv = pow(INTAKE_HASH_MEMBER, -1, 1 << 32)
+    h = (int(gt[0]) * INTAKE_HASH_GT ^ 5 * INTAKE_HASH_MEMBER) & 0xFFFFFFFF
+    member = np.array([((h ^ (int(g) * INTAKE_HASH_GT & 0xFFFFFFFF)) * inv)
+                       & 0xFFFFFFFF for g in gt], np.uint64)
+    return gt, member
+
+
+def intake_arrays(rs, n: int, m: int, b: int, keys: int = 30,
+                  members: int = 3, unsorted: float = 0.0,
+                  high: bool = False, empty_rings: bool = False,
+                  collide: bool = False):
+    """K5's inputs ``(store_gt, store_member, member, gt, ok)``: [n, m]
+    rings sorted by (gt, member) with a random fill and EMPTY slots last,
+    and an [n, b] batch whose keys come from the same small ranges, so
+    hits in the ring and repeats in the batch are common; a tenth of the
+    entries have an EMPTY gt, half of those an EMPTY member too.
+    ``high`` draws every key from 0, 1, 2, 2^31, 2^31 + 1 and
+    0xFFFFFFFE; ``unsorted`` is the share of rows whose slots are
+    shuffled (K5's fallback); ``empty_rings`` leaves every slot EMPTY;
+    ``collide`` draws every key from four that share one dedup hash
+    (:func:`colliding_keys`)."""
+    pool = colliding_keys(rs, 4) if collide else None
+
+    def draw(shape):
+        if collide:
+            pick = rs.integers(0, 4, size=shape)
+            return pool[0][pick], pool[1][pick]
+        if high:
+            return (rs.choice(HIGH_KEYS, size=shape),
+                    rs.choice(HIGH_KEYS, size=shape))
+        return (rs.integers(1, keys, size=shape),
+                rs.integers(0, members, size=shape))
+    g, mem = draw((n, m))
+    order = np.lexsort((mem, g), axis=1)
+    g, mem = (np.take_along_axis(a, order, 1) for a in (g, mem))
+    fill = np.zeros(n, int) if empty_rings else rs.integers(0, m + 1, size=n)
+    live = np.arange(m)[None, :] < fill[:, None]
+    g, mem = (np.where(live, a, EMPTY_U32) for a in (g, mem))
+    shuffle = (rs.random(n) < unsorted)[:, None]
+    perm = np.argsort(rs.random((n, m)), axis=1)
+    g, mem = (np.where(shuffle, np.take_along_axis(a, perm, 1), a)
+              for a in (g, mem))
+    qg, qm = draw((n, b))
+    e = rs.random((n, b))
+    qg = np.where(e < 0.1, EMPTY_U32, qg)
+    qm = np.where(e < 0.05, EMPTY_U32, qm)
+    ok = rs.random((n, b)) < 0.7
+    return (*(np.asarray(a).astype(np.uint32) for a in (g, mem, qm, qg)),
+            ok)
+
+
+def compact_cases(n_peers: int = 1 << 20, seed: int = 0,
+                  dev="cuda") -> dict:
+    """K4's and K5's call shapes in the rounds at ``n_peers`` peers, on
+    random inputs made with a numpy seed, in the form of
+    :func:`store_cases`: K4 at the legacy outbox ([N, 48] -> 8, six
+    columns), the forward buffer ([N, 24] -> 4, five), the diet serve
+    ([N/4, 48] -> 8, u16 aux) and the recovery pass ([N, 48] -> 48,
+    six); K5 at the legacy intake ([N, 24] against [N, 48]) on sorted
+    rings and on the same rings reversed (every row off the search path
+    but the 1 in 49 with no live slot), and ``dup_earlier`` alone at the
+    diet's [N, 24].  K4's bytes: the slot map, the kept entries of each
+    column, the outputs; K5's: every operand and the answers."""
+    import torch
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.ops import store as st
+
+    x = Draw(seed, dev)
+    leg, diet = slice_config(n_peers), bench_config(n_peers)
+    n, m = n_peers, leg.msg_capacity
+    b, rb = leg.response_budget + leg.push_inbox, leg.response_budget
+    cases = {}
+
+    def slots(keep, width):
+        rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+        return torch.where(keep & (rank < width), rank,
+                           width).to(torch.int32)
+
+    def k4(name, cols, slot, width):
+        kept = int(((slot >= 0) & (slot < width)).sum())
+        out = st.rank_compact_many_plain(cols, slot, width)
+        moved = (_nbytes(slot) + _nbytes(*out)
+                 + kept * sum(c.element_size() for c, _ in cols))
+        cases[name] = (
+            lambda: kernels.rank_compact_many(cols, slot, width),
+            lambda: st.rank_compact_many_plain(cols, slot, width), None,
+            moved, "rank_compact_many")
+
+    def ring_cols(r, last):
+        return [(r.gt, EMPTY_U32), (r.member, EMPTY_U32), (r.meta, 0xFF),
+                (r.payload, EMPTY_U32), (r.aux, 0), last]
+
+    store, batch = store_inputs(x, n, m, b)
+    missing = x.flags(0.3, n, m)
+    k4("compact_outbox", ring_cols(store, (missing, False)),
+       slots(missing, rb), rb)
+    k4("compact_forward", [(c, st.empty_of(c.dtype)) for c in batch[:5]],
+       slots(x.flags(0.5, n, b), leg.forward_buffer), leg.forward_buffer)
+    blk = n // diet.store.cohorts
+    ring = diet_cols(x, blk, m, prefix=False)
+    missing = x.flags(0.3, blk, m)
+    k4("compact_diet_serve", ring_cols(ring, (missing, False)),
+       slots(missing, rb), rb)
+    keep = (store.gt.view(torch.int32) != -1) & x.flags(0.95, n, m)
+    k4("compact_recovery", ring_cols(store, (store.flags, 0)),
+       slots(keep, m), m)
+
+    ok = x.flags(0.8, n, b)
+
+    def k5(name, sg, sm):
+        args = (sg, sm, batch.member, batch.gt, ok)
+        cases[name] = (
+            lambda: kernels.intake_checks(*args),
+            lambda: (intake.in_store_plain(*args[:4]),
+                     intake.dup_earlier_plain(*args[2:])), None,
+            _nbytes(*args) + 2 * n * b, "intake_checks")
+
+    def rev(c):
+        return c.view(torch.int32).flip(1).contiguous().view(torch.uint32)
+    k5("intake_sorted", store.gt, store.member)
+    k5("intake_unsorted", rev(store.gt), rev(store.member))
+    member, gt = x.u32(n, b, hi=4), x.u32(n, b, hi=12)
+    dok = x.flags(0.8, n, b)
+    cases["dup_earlier_diet"] = (
+        lambda: kernels.dup_earlier(member, gt, dok),
+        lambda: intake.dup_earlier_plain(member, gt, dok), None,
+        _nbytes(member, gt, dok) + n * b, "dup_earlier")
+    return cases
+
+
 def profile_store(n_peers: int = 1 << 20, reps: int = 20,
                   seed: int = 0, cases: str = "store") -> dict:
-    """Each of :func:`store_cases` (``cases="store"``: K3, K9) or of
-    :func:`probe_cases` (``"probe"``: K11, K2, K6) on the card: the kernel
+    """Each of :func:`store_cases` (``cases="store"``: K3, K9), of
+    :func:`probe_cases` (``"probe"``: K11, K2, K6) or of
+    :func:`compact_cases` (``"compact"``: K4, K5) on the card: the kernel
     held bit for bit against its plain version, then the kernel (``reps``
     launches), K3's ``torch.sort`` yardstick (``reps``) and the plain
     version (5) timed with CUDA events (medians), beside the bytes bound
     at 3.35 TB/s.  ``python -m dispersy_tpu_torch.profiling --store``
-    (``--probe``) prints it as one JSON line."""
+    (``--probe``, ``--compact``) prints it as one JSON line."""
     import subprocess
 
     import torch
@@ -1102,7 +1356,8 @@ def profile_store(n_peers: int = 1 << 20, reps: int = 20,
            "device": torch.cuda.get_device_name(0),
            "kernels": str(Path(kernels.__file__).resolve().parent),
            "cases": {}}
-    make = {"store": store_cases, "probe": probe_cases}[cases]
+    make = {"store": store_cases, "probe": probe_cases,
+            "compact": compact_cases}[cases]
     for name, (kernel, plain, yardstick, moved, key) in make(
             n_peers, seed).items():
         if not _same(kernel(), plain()):
@@ -1168,6 +1423,11 @@ if __name__ == "__main__":
                        help="time K11, K2 and K6 at each call shape of the "
                        "1M rounds (profile_store's probe cases); with "
                        "checkout ROOTs, once on each in turn")
+    which.add_argument("--compact", nargs="*", metavar="ROOT",
+                       help="time K4 and K5 at each call shape of the 1M "
+                       "rounds and K5 on rings out of order "
+                       "(profile_store's compact cases); with checkout "
+                       "ROOTs, once on each in turn")
     which.add_argument("--diet", action="store_true",
                        help="trace the byte-diet round of bench_config")
     which.add_argument("--timeline", action="store_true",
@@ -1181,7 +1441,8 @@ if __name__ == "__main__":
     if args.delivery:
         print(json.dumps(profile_delivery()))
         raise SystemExit(0)
-    for cases, roots in (("store", args.store), ("probe", args.probe)):
+    for cases, roots in (("store", args.store), ("probe", args.probe),
+                         ("compact", args.compact)):
         if roots is not None:
             runs = (profile_store_roots(roots, cases) if roots
                     else [profile_store(cases=cases)])

@@ -28,6 +28,7 @@ from dispersy_tpu.ops import store as jstore
 from dispersy_tpu.ops.contracts import DIMS
 from dispersy_tpu.config import CommunityConfig as JaxConfig
 
+from dispersy_tpu_torch import profiling
 from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch.ops import bloom, inbox, intake, rng
 from dispersy_tpu_torch.ops import candidates as cand
@@ -398,6 +399,27 @@ def test_rank_compact_many(n, w, width, impl):
          [ref(jstore.rank_compact, cols[0][0], slot, width, U32_MAX)])
 
 
+# K4's corners (the gather kernel's branches; held here as the plain
+# version against the JAX package), N = 203: ``profiling.compact_corners``.
+# The negative slot is -1 only: the JAX package's flat scatter sends slot
+# -1 to the previous row's spill column, so -1 is the negative slot both
+# packages drop.
+COMPACT_CORNERS = profiling.compact_corners(negative=(-1,))
+
+
+@pytest.mark.parametrize("corner", sorted(COMPACT_CORNERS))
+@pytest.mark.parametrize("impl", ["gather", "scatter"])
+def test_rank_compact_many_corners(corner, impl):
+    kw = dict(COMPACT_CORNERS[corner])
+    w, width = kw.pop("w"), kw.pop("width")
+    rs = np.random.default_rng(w * 1000 + width)
+    slot, cols = profiling.compact_arrays(rs, 203, w, width, **kw)
+    want = ref(jstore.rank_compact_many, cols, slot, width, impl=impl)
+    got = st.rank_compact_many([(to_t(c), f) for c, f in cols], to_t(slot),
+                               width)
+    same(got, want)
+
+
 # ---- K5 intake checks ----------------------------------------------------------
 
 @pytest.mark.parametrize("n,m,b", [(DIMS["N"], DIMS["M"], DIMS["B"]),
@@ -416,6 +438,28 @@ def test_intake_checks(n, m, b, impl):
     same(got, [want_in, want_dup])
     if n * b > 100:
         assert to_np(got[0]).any() and to_np(got[1]).any()
+
+
+# K5's corners (the search kernel's branches), N = 203:
+# ``profiling.INTAKE_CORNERS``.
+INTAKE_CORNERS = profiling.INTAKE_CORNERS
+
+
+@pytest.mark.parametrize("corner", sorted(INTAKE_CORNERS))
+@pytest.mark.parametrize("impl", ["broadcast", "chunked"])
+def test_intake_checks_corners(corner, impl):
+    kw = dict(INTAKE_CORNERS[corner])
+    m, b = kw.pop("m"), kw.pop("b")
+    rs = np.random.default_rng(m * 100 + b)
+    sg, sm, bm, bg, ok = profiling.intake_arrays(rs, 203, m, b, **kw)
+    rest = [np.zeros_like(sg)] * 4
+    want_in = ref(jintake.in_store, jstore.StoreCols(sg, sm, *rest), bm, bg,
+                  impl=impl)
+    want_dup = ref(jintake.dup_earlier, bm, bg, ok, impl=impl)
+    got = intake.intake_checks(*map(to_t, (sg, sm, bm, bg, ok)))
+    same(got, [want_in, want_dup])
+    same([intake.dup_earlier(*map(to_t, (bm, bg, ok)))], [want_dup])
+    assert to_np(got[1]).any() == (b > 1)
 
 
 # ---- candidates (no TPU-only form: plain PyTorch everywhere) -------------------
