@@ -23,7 +23,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ones, EMPTY keys, all-EMPTY rings, keys at 2^31 and 0xFFFFFFFE),
    the byte-diet round's
    (u16 aux columns, per-row Bloom salts, the cohort block, the staging
-   buffer), the permissioned round's (the [N, 8] grant tables, the store
+   buffer, and K7's corners: holes among a row's valid entries, full
+   rows, no arrival, every arrival dropped, S = 1 and 32, each aux width
+   pair, B = 0 and 200), the permissioned round's (the [N, 8] grant
+   tables: K8 ``check`` at the intake's, the retro pass's and the author
+   gate's shapes, ``check_grant``, the fused ``check_many`` and
+   ``check_grant_rev``, and K8's corners: A = 1, 8 off a 16-byte
+   address, 32; Q = 1, 24, 33, 200; a grant and a revoke tied at one gt;
+   global times about 2^31 and at the top of the range; free-slot
+   queries; empty masks; n_meta 0 and 9; the store
    replays in each K9 mode at the intake's and the retro pass's shapes,
    and K9's corners: Q = 1, 24, 48, nothing or everything selected,
    times at and above 2^31, several rows of one key; store_remove, K3
@@ -37,7 +45,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K1, and on the exact puncture channels; K1 with classes on the
    unsharded push blast) -- held bit
    for bit against its plain PyTorch version on the card, and timed with
-   CUDA events beside the plain version, the bytes bound and, where one
+   CUDA events (queued behind a spin of the card, so that a call shorter
+   than its wrapper's host work is timed by the card's work) beside the
+   plain version, the bytes bound and, where one
    PyTorch call does the same work, that call (for K1 and K12
    ``torch.sort`` of the packed destination key, for K3 of the packed
    (gt, member) key);
@@ -100,6 +110,7 @@ P_PUSH = 0.05                  # valid push edges in the chaos kernel rows
 WARMUP, ROUNDS = 3, 5          # the legacy and permissioned main paths
 DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
+CORNER_ROWS = 4099             # K7's and K8's corners: not a block's multiple
 SEED = 0
 # The kernels each main path must launch (kernels.LAUNCHES keys).
 LEGACY_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
@@ -109,7 +120,8 @@ DIET_PATH = ("deliver", "bloom_build", "bloom_query", "digest_update",
              "dup_earlier")
 PERM_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert_history",
              "rank_compact_many", "intake_checks", "timeline_check",
-             "timeline_check_grant", "store_match_flip",
+             "timeline_check_many", "timeline_check_grant",
+             "timeline_check_grant_rev", "store_match_flip",
              "store_match_undo_marked", "store_match_meta_of",
              "store_match_undo_hits", "store_remove")
 HARD_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
@@ -829,6 +841,76 @@ def check_diet_stage(x: Draw, reps: int) -> list:
         lambda: st.store_stage_plain(staging, cast_b, mask), moved, reps)]
 
 
+def stage_case(x: Draw, n, s, b, p, fill, holes=False,
+               aux=("u16", "u32")):
+    """A staging buffer of ``n`` rows and ``s`` slots (valid entries a
+    prefix of random length up to ``fill`` of the row, or with ``holes``
+    scattered at rate ``fill``; ``fill`` 1 fills every row) and an [n, b]
+    batch masked at rate ``p``; ``aux`` the staging's and the batch's aux
+    widths."""
+    torch, np = x.torch, x.np
+    from dispersy_tpu_torch.ops import store as st
+    if holes:
+        live = x.rs.random((n, s)) < fill
+    else:
+        live = (np.arange(s)[None, :] < (x.rs.random(n) * (s + 1) * fill)
+                .astype(int)[:, None])
+    tl_ = torch.from_numpy(live).to(x.dev)
+
+    def cols(rows, width, lv, kind):
+        g = x.u32(rows, width, hi=200)
+        a = x.u16(rows, width) if kind == "u16" else x.u32(rows, width)
+        c = st.StoreCols(gt=g, member=x.u32(rows, width, hi=6),
+                         meta=x.u8(rows, width, hi=4),
+                         payload=x.u32(rows, width), aux=a,
+                         flags=x.u8(rows, width, hi=3))
+        if lv is None:
+            return c
+        return c._replace(gt=torch.where(lv, g.view(torch.int32), -1).view(
+            torch.uint32))
+    return (cols(n, s, tl_, aux[0]), cols(n, b, None, aux[1]),
+            x.flags(p, n, b))
+
+
+def check_stage_corners(x: Draw, reps: int) -> list:
+    """K7's corners, untimed, bit-equal to the plain version: valid
+    entries with holes among them (cnt is a count, not a prefix length),
+    every row full, no arrival, every arrival dropped, S = 1 and S = 32,
+    u32 staging aux, a u16 batch aux, B past the first wave's four
+    chunks, rows not filling a block."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    n = CORNER_ROWS
+    cases = {
+        "diet shape, holes": (n, 8, 24, 0.3, 0.7, True, ("u16", "u32")),
+        "full rows": (n, 8, 24, 0.5, 1.0, False, ("u16", "u32")),
+        "no arrival": (n, 8, 24, 0.0, 0.5, False, ("u16", "u32")),
+        "every arrival dropped": (n, 8, 24, 1.0, 1.0, False,
+                                  ("u16", "u32")),
+        "S = 1": (n, 1, 24, 0.4, 0.5, False, ("u16", "u32")),
+        "S = 32, u32 aux": (n, 32, 24, 0.6, 0.5, False, ("u32", "u32")),
+        "S = 32, holes": (n, 32, 24, 0.6, 0.5, True, ("u32", "u16")),
+        "u16 batch aux": (n, 8, 24, 0.3, 0.5, False, ("u16", "u16")),
+        "u32 staging, u16 batch": (n, 8, 24, 0.3, 0.5, False,
+                                   ("u32", "u16")),
+        "B = 200": (n, 5, 200, 0.05, 0.3, True, ("u16", "u32")),
+        "B = 0": (n, 8, 0, 0.5, 0.5, False, ("u16", "u32"))}
+    for name, (n, s, b, p, fill, holes, aux) in cases.items():
+        staging, batch, mask = stage_case(x, n, s, b, p, fill, holes, aux)
+        want = st.store_stage_plain(staging,
+                                    st.as_store_dtypes(batch, staging), mask)
+        err = max_abs_err(kernels.store_stage(staging, batch, mask),
+                          [*want.staging, *want[1:]])
+        if err != 0:
+            fail(f"kernel store_stage corner {name!r} disagrees with its "
+                 f"plain version (max abs err {err})")
+        if p and b and fill < 1 and not bool(want.landed.any()):
+            fail(f"store_stage corner {name!r}: nothing landed")
+    print(f"kernel store_stage corners: {len(cases)} cases, mismatches 0 "
+          "(untimed)", flush=True)
+    return []
+
+
 def check_diet_store(x: Draw, reps: int) -> list:
     """K3 at the staggered compaction: a cohort block's [N/4, 48] ring
     and its [N/4, 8] staging buffer, u16 aux; and, untimed, the same
@@ -914,81 +996,196 @@ def check_diet_intake(x: Draw, reps: int) -> list:
 
 
 DIET_KERNEL_CHECKS = (check_diet_deliver, check_diet_bloom, check_diet_stage,
-                      check_diet_store, check_diet_compact, check_diet_intake)
+                      check_stage_corners, check_diet_store,
+                      check_diet_compact, check_diet_intake)
 
 
 # ---- phase 2, the permissioned round's call shapes ---------------------------
 
-def grant_table(x: Draw, n: int, a: int):
-    """Random [N, A] grant tables: members and global times from small
-    ranges (so queries hit, and grant and revoke rows tie), nibble masks
-    over the three metas, empty slots."""
-    from dispersy_tpu_torch.ops import timeline as tl
-    np = x.np
-    live = x.rs.random((n, a)) < 0.7
-    member = np.where(live, x.rs.integers(0, 64, size=(n, a)), 0xFFFFFFFF)
-    return tl.AuthTable(member=x.from_u32(member), mask=x.u32(n, a, hi=1 << 12),
-                        gt=x.u32(n, a, hi=40), rev=x.flags(0.3, n, a),
-                        issuer=x.from_u32(np.where(live, x.rs.integers(
-                            0, 64, size=(n, a)), 0xFFFFFFFF)))
-
-
 def check_timeline(x: Draw, reps: int) -> list:
-    """K8 at the intake batch's [N, 24] queries: ``check`` (u8 metas
-    among them out of the nibble range, a founder column) and
-    ``check_grant`` (AUTHORIZE bits over the three metas); ``check`` also
-    at the retro pass's [N, 48] and the author gate's [N, 1] queries.
-    Bytes: the table's four columns (13 B a slot), the queries, the
-    founder column, the verdicts."""
-    torch = x.torch
+    """K8 at every call shape of the permissioned round: ``check`` at the
+    intake batch's [N, 24] queries (u8 metas, among them metas out of the
+    nibble range, a founder column), the retro pass's [N, 48] and the
+    author gate's [N, 1] (u32 metas); ``check_grant`` at [N, 24]
+    (AUTHORIZE bits over the three metas); the fused entries: the
+    intake's ``check_many`` (undo, flip and permit pairs in one walk) and
+    ``check_grant_rev`` (REVOKE where the record is a revoke) at [N, 24]
+    and [N, 48].  The queries carry the round's share of free slots at
+    their width (``profiling.TIMELINE_EMPTY_SHARE``).  Bytes: the table's
+    four columns (13 B a slot), the queries, the founder column, the
+    verdicts."""
     from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.config import PERM_AUTHORIZE, PERM_PERMIT
+    from dispersy_tpu_torch.config import (PERM_AUTHORIZE, PERM_PERMIT,
+                                           PERM_REVOKE, PERM_UNDO)
     from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.profiling import grant_table, timeline_queries
     cfg, n = x.cfg, x.cfg.n_peers
-    a, m = cfg.k_authorized, cfg.msg_capacity
+    a, m, nm = cfg.k_authorized, cfg.msg_capacity, cfg.n_meta
     b = cfg.response_budget + cfg.push_inbox
+    src, tab_b = "dispersy_tpu_torch/csrc/timeline.cu", 13 * n * a
     tab = grant_table(x, n, a)
     founder = x.u32(n, 1, hi=64)
     rows = []
-
-    def queries(q):
-        meta = torch.from_numpy(x.rs.choice(
-            x.np.array([0, 1, 2, 0xF0, 0xF5], x.np.uint8), size=(n, q))).to(
-                x.dev)
-        return x.u32(n, q, hi=64), meta, x.u32(n, q, hi=48)
-    member, meta, gt = queries(b)
-    got = [kernels.timeline_check(tab, member, meta, gt, founder,
-                                  PERM_PERMIT)]
-    want = [tl.check_plain(tab, member, meta, gt, founder, PERM_PERMIT)]
-    for q in (m, 1):
-        qm, qt, qg = queries(q)
-        got.append(kernels.timeline_check(tab, qm, qt, qg, 8, PERM_AUTHORIZE))
-        want.append(tl.check_plain(tab, qm, qt, qg, 8, PERM_AUTHORIZE))
-    if not bool(got[0].any()) or bool(got[0].all()):
-        fail("timeline_check inputs give a constant answer")
+    for name, q, u8 in (("timeline_check", b, True),
+                        ("timeline_check_retro", m, True),
+                        ("timeline_check_gate", 1, False)):
+        args = (tab, *timeline_queries(x, n, q, u8), founder, PERM_PERMIT)
+        got = kernels.timeline_check(*args)
+        if not bool(got.any()) or bool(got.all()):
+            fail(f"{name} inputs give a constant answer")
+        rows.append(timed_entry(
+            name, "cuda", src, "dispersy_tpu/ops/timeline.py:100", [got],
+            [tl.check_plain(*args)], lambda args=args: kernels.timeline_check(
+                *args), lambda args=args: tl.check_plain(*args),
+            tab_b + nbytes(*args[1:5]) + n * q, reps,
+            kernel="timeline_check"))
+    member, meta8, gt = timeline_queries(x, n, b)
+    _, undo_meta, _ = timeline_queries(x, n, b, u8=False)
+    pairs = ((undo_meta, PERM_UNDO), (x.u32(n, b, hi=4), PERM_AUTHORIZE),
+             (meta8, PERM_PERMIT))
+    got = kernels.timeline_check_many(tab, member, pairs, gt, founder)
+    want = tl.check_many_plain(tab, member, pairs, gt, founder)
+    if not all(bool(g.any()) for g in got):
+        fail("timeline_check_many inputs never hold a pair")
     rows.append(timed_entry(
-        "timeline_check", "cuda", "dispersy_tpu_torch/csrc/timeline.cu",
+        "timeline_check_many", "cuda", src,
         "dispersy_tpu/ops/timeline.py:100", got, want,
-        lambda: kernels.timeline_check(tab, member, meta, gt, founder,
-                                       PERM_PERMIT),
-        lambda: tl.check_plain(tab, member, meta, gt, founder, PERM_PERMIT),
-        13 * n * a + nbytes(member, meta, gt, founder) + n * b, reps))
+        lambda: kernels.timeline_check_many(tab, member, pairs, gt, founder),
+        lambda: tl.check_many_plain(tab, member, pairs, gt, founder),
+        tab_b + nbytes(member, gt, founder, *(k for k, _ in pairs))
+        + 3 * n * b, reps))
     mask = x.u32(n, b, hi=1 << 12)
-    got = kernels.timeline_check_grant(tab, member, mask, gt, cfg.n_meta,
+    got = kernels.timeline_check_grant(tab, member, mask, gt, nm,
                                        PERM_AUTHORIZE)
-    want = tl.check_grant_plain(tab, member, mask, gt, cfg.n_meta,
-                                PERM_AUTHORIZE)
     if not bool(got.any()):
         fail("timeline_check_grant inputs never grant")
     rows.append(timed_entry(
-        "timeline_check_grant", "cuda", "dispersy_tpu_torch/csrc/timeline.cu",
-        "dispersy_tpu/ops/timeline.py:133", [got], [want],
-        lambda: kernels.timeline_check_grant(tab, member, mask, gt,
-                                             cfg.n_meta, PERM_AUTHORIZE),
-        lambda: tl.check_grant_plain(tab, member, mask, gt, cfg.n_meta,
+        "timeline_check_grant", "cuda", src,
+        "dispersy_tpu/ops/timeline.py:133", [got],
+        [tl.check_grant_plain(tab, member, mask, gt, nm, PERM_AUTHORIZE)],
+        lambda: kernels.timeline_check_grant(tab, member, mask, gt, nm,
+                                             PERM_AUTHORIZE),
+        lambda: tl.check_grant_plain(tab, member, mask, gt, nm,
                                      PERM_AUTHORIZE),
-        13 * n * a + nbytes(member, mask, gt) + n * b, reps))
+        tab_b + nbytes(member, mask, gt) + n * b, reps))
+    for name, q in (("timeline_check_grant_rev", b),
+                    ("timeline_check_grant_rev_retro", m)):
+        g_member, _, g_gt = timeline_queries(x, n, q)
+        args = (tab, g_member, x.u32(n, q, hi=1 << 12), g_gt,
+                x.flags(0.5, n, q), nm)
+        got = kernels.timeline_check_grant_rev(*args)
+        want = x.torch.where(
+            args[4], tl.check_grant_plain(*args[:4], nm, PERM_REVOKE),
+            tl.check_grant_plain(*args[:4], nm, PERM_AUTHORIZE))
+        if not bool(got.any()):
+            fail(f"{name} inputs never grant")
+        rows.append(timed_entry(
+            name, "cuda", src, "dispersy_tpu/ops/timeline.py:133", [got],
+            [want], lambda args=args: kernels.timeline_check_grant_rev(*args),
+            lambda args=args: tl.check_grant_rev_plain(*args),
+            tab_b + nbytes(*args[1:5]) + n * q, reps,
+            kernel="timeline_check_grant_rev"))
     return rows
+
+
+def misaligned(c):
+    """A contiguous copy of the [N, A] column ``c`` one element past an
+    aligned address (so a kernel cannot take its 16-byte loads)."""
+    import torch
+    bits = c.view(torch.uint8 if c.dtype == torch.bool else torch.int32)
+    buf = torch.empty(c.numel() + 1, dtype=bits.dtype, device=c.device)
+    buf[1:] = bits.reshape(-1)
+    return buf[1:].view(c.shape).view(c.dtype)
+
+
+def check_timeline_corners(x: Draw, reps: int) -> list:
+    """K8's corners, untimed, every entry bit-equal to its plain version
+    (and ``check_grant_rev`` to the ``torch.where`` of two
+    ``check_grant`` calls): A = 1, 8 (with the table at an address that
+    is not 16-byte aligned: the slot-by-slot path), 32; Q = 1, 24, 33,
+    200 (a lane's queries in two passes); a
+    grant and a revoke tied at one gt for the first query of every row;
+    global times about 2^31 and at 0xFFFFFFFE-0xFFFFFFFF, in tables that
+    fit the 32-bit walk and in tables that do not; a tenth of the queries
+    free slots (member and gt EMPTY_U32); empty masks, masks with nibbles
+    past ``n_meta`` and n_meta 0 and 9; u8 and u32 metas out of the
+    nibble range; int founders (EMPTY_U32 among them) and column
+    founders; rows not filling a block."""
+    torch = x.torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import (EMPTY_U32, PERM_AUTHORIZE,
+                                           PERM_PERMIT, PERM_REVOKE,
+                                           PERM_UNDO)
+    from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.profiling import grant_table, timeline_queries
+    n, cases = CORNER_ROWS, 0
+
+    def same(got, want, what):
+        err = max_abs_err(got, want)
+        if err != 0:
+            fail(f"kernel {what} disagrees with its plain version (max abs "
+                 f"err {err})")
+    for a, q, shift in ((8, 24, False), (8, 24, True), (1, 24, False),
+                        (32, 24, False), (8, 33, False), (32, 1, False),
+                        (8, 1, False), (8, 200, False)):
+        tab = grant_table(x, n, a)
+        member, meta8, gt = timeline_queries(x, n, q, empty=0.1)
+        _, meta32, _ = timeline_queries(x, n, q, u8=False)
+        if a > 1:     # slot a-1 = slot 0 with the revoke flag flipped
+            cols = [c.clone() for c in tab]
+            for c in cols[:3] + cols[4:]:
+                c.view(torch.int32)[:, a - 1] = c.view(torch.int32)[:, 0]
+            cols[3][:, a - 1] = ~cols[3][:, 0]
+            tab = tl.AuthTable(*cols)
+            for q_col, t_col in ((member, tab.member), (gt, tab.gt)):
+                q_col.view(torch.int32)[:, 0] = t_col.view(torch.int32)[:, 0]
+        # Global times about 2^31 and at the top of the range, in a tenth
+        # of the slots and queries: the walk's 64-bit key.
+        high = x.from_u32(x.rs.choice(x.np.array(
+            [0x7FFFFFFE, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF],
+            x.np.uint32), size=(n, max(a, q))))
+        for col, w in ((tab.gt, a), (gt, q)):
+            col.view(torch.int32).copy_(torch.where(
+                x.flags(0.1, n, w), high[:, :w].view(torch.int32),
+                col.view(torch.int32)))
+        if shift:
+            tab = tl.AuthTable(*(misaligned(c) for c in tab))
+        mask = x.u32(n, q, hi=1 << 12)
+        mask = torch.where(x.flags(0.1, n, q), 0, mask.view(torch.int32))
+        mask = torch.where(x.flags(0.1, n, q), mask | (1 << 28), mask).view(
+            torch.uint32)
+        is_rev = x.flags(0.5, n, q)
+        for founder in (7, EMPTY_U32, x.u32(n, 1, hi=64)):
+            for perm in (PERM_PERMIT, PERM_AUTHORIZE, PERM_REVOKE, PERM_UNDO):
+                for meta in (meta8, meta32):
+                    same([kernels.timeline_check(tab, member, meta, gt,
+                                                 founder, perm)],
+                         [tl.check_plain(tab, member, meta, gt, founder,
+                                         perm)], "timeline_check")
+            pairs = ((meta32, PERM_UNDO), (meta8, PERM_AUTHORIZE),
+                     (meta8, PERM_PERMIT))
+            for k in (1, 2, 3):
+                same(kernels.timeline_check_many(tab, member, pairs[:k], gt,
+                                                 founder),
+                     tl.check_many_plain(tab, member, pairs[:k], gt,
+                                         founder), "timeline_check_many")
+        for nm in (0, 3, 9):
+            for perm in (PERM_AUTHORIZE, PERM_REVOKE):
+                same([kernels.timeline_check_grant(tab, member, mask, gt, nm,
+                                                   perm)],
+                     [tl.check_grant_plain(tab, member, mask, gt, nm, perm)],
+                     "timeline_check_grant")
+            same([kernels.timeline_check_grant_rev(tab, member, mask, gt,
+                                                   is_rev, nm)],
+                 [torch.where(is_rev, tl.check_grant_plain(
+                     tab, member, mask, gt, nm, PERM_REVOKE),
+                     tl.check_grant_plain(tab, member, mask, gt, nm,
+                                          PERM_AUTHORIZE))],
+                 "timeline_check_grant_rev")
+        cases += 1
+    print(f"kernel timeline_check corners: {cases} shapes, mismatches 0 "
+          "(untimed)", flush=True)
+    return []
 
 
 def check_store_match(x: Draw, reps: int) -> list:
@@ -1129,7 +1326,8 @@ def check_store_history(x: Draw, reps: int) -> list:
     return rows
 
 
-PERM_KERNEL_CHECKS = (check_timeline, check_store_match,
+PERM_KERNEL_CHECKS = (check_timeline, check_timeline_corners,
+                      check_store_match,
                       check_store_match_corners, check_remove,
                       check_store_history)
 

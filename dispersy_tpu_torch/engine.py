@@ -57,8 +57,8 @@ from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
                                        META_IDENTITY, META_MALICIOUS,
                                        META_REVOKE,
                                        META_UNDO_OTHER, META_UNDO_OWN,
-                                       NO_PEER, PERM_AUTHORIZE, PERM_REVOKE,
-                                       PERM_UNDO, PUNCTURE_BYTES,
+                                       NO_PEER, PERM_AUTHORIZE, PERM_PERMIT,
+                                       PERM_REVOKE, PERM_UNDO, PUNCTURE_BYTES,
                                        PUNCTURE_REQUEST_BYTES, RECORD_BYTES,
                                        CommunityConfig, user_perm_mask)
 from dispersy_tpu_torch.faults import (HEALTH_BLOOM_SAT,
@@ -495,20 +495,18 @@ def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
                  is_revoke=is_rev, valid=fresh0 & is_grant & ctrl_ok0,
                  issuer=member)
     auth = fr.table
-    deleg_ok = is_grant & ~ctrl_ok0 & torch.where(
-        is_rev,
-        tl.check_grant(auth, member, grant_mask, gt, cfg.n_meta,
-                       perm=PERM_REVOKE),
-        tl.check_grant(auth, member, grant_mask, gt, cfg.n_meta,
-                       perm=PERM_AUTHORIZE))
+    deleg_ok = is_grant & ~ctrl_ok0 & tl.check_grant_rev(
+        auth, member, grant_mask, gt, is_rev, cfg.n_meta)
     fr2 = tl.fold(auth, target=payload, mask=grant_mask, gt=gt,
                   is_revoke=is_rev, valid=fresh0 & deleg_ok, issuer=member)
     auth = fr2.table
+    # The undo, flip and permit checks share one table walk.
     undo_tmeta = intake.stored_meta_of(stc, payload, aux)
-    undo_ok = is_undo_other & tl.check(auth, member, undo_tmeta, gt, founder,
-                                       perm=PERM_UNDO)
-    flip_grant_ok = is_flip & tl.check(auth, member, payload, gt, founder,
-                                       perm=PERM_AUTHORIZE)
+    undo_held, flip_held, permitted = tl.check_many(
+        auth, member, ((undo_tmeta, PERM_UNDO), (payload, PERM_AUTHORIZE),
+                       (meta, PERM_PERMIT)), gt, founder)
+    undo_ok = is_undo_other & undo_held
+    flip_grant_ok = is_flip & flip_held
     ctrl_ok = ctrl_ok0 | deleg_ok | undo_ok | flip_grant_ok
     best = None
     if cfg.dynamic_meta_mask:
@@ -518,7 +516,6 @@ def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
             wide(intake.flip_best_batch(flip_ok, payload, gt, aux, meta,
                                         gt))))
     protected = _protected_now(meta, cfg, best)
-    permitted = tl.check(auth, member, meta, gt, founder)
     accept = in_ok & torch.where(is_ctrl, ctrl_ok,
                                  torch.where(protected, permitted, True))
     # Arrivals whose undo is already stored come in pre-undone.
@@ -546,12 +543,11 @@ def _retro_pass(auth: tl.AuthTable, stc: st.StoreCols, cfg: CommunityConfig,
     fcol = founder_col[:, None]
     user_aux = narrow(wide(stc.aux) & user_perm_mask(cfg.n_meta))
     by_founder = bits(stc.member) == bits(fcol)
-    ok_auth = by_founder | tl.check_grant(auth, stc.member, user_aux, stc.gt,
-                                          cfg.n_meta, perm=PERM_AUTHORIZE)
-    ok_rev = by_founder | tl.check_grant(auth, stc.member, user_aux, stc.gt,
-                                         cfg.n_meta, perm=PERM_REVOKE)
-    kill = (((stc.meta == META_AUTHORIZE) & ~ok_auth)
-            | ((stc.meta == META_REVOKE) & ~ok_rev))
+    is_rev = stc.meta == META_REVOKE
+    # Authorize and revoke records are disjoint: one walk, the perm by meta.
+    kill = (((stc.meta == META_AUTHORIZE) | is_rev)
+            & ~(by_founder | tl.check_grant_rev(auth, stc.member, user_aux,
+                                                stc.gt, is_rev, cfg.n_meta)))
     if cfg.dynamic_meta_mask:
         ok_flip = tl.check(auth, stc.member, stc.payload, stc.gt, fcol,
                            perm=PERM_AUTHORIZE)

@@ -40,7 +40,8 @@ LAUNCHES = {"deliver": 0, "deliver_cls": 0, "deliver_ragged": 0,
             "bloom_build": 0, "bloom_query": 0,
             "digest_update": 0, "store_insert": 0, "store_insert_history": 0,
             "rank_compact_many": 0, "store_stage": 0, "intake_checks": 0,
-            "dup_earlier": 0, "timeline_check": 0, "timeline_check_grant": 0,
+            "dup_earlier": 0, "timeline_check": 0, "timeline_check_many": 0,
+            "timeline_check_grant": 0, "timeline_check_grant_rev": 0,
             "store_match_flip": 0, "store_match_undo_marked": 0,
             "store_match_meta_of": 0, "store_match_undo_hits": 0,
             "store_remove": 0, "store_probe_conflict": 0,
@@ -53,6 +54,7 @@ BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
 STAGE_MAX_SLOTS = 32       # csrc/stage.cu MAX_S
 STORE_MAX_HISTORY = 24     # csrc/store.cu MAX_META
 TIMELINE_MAX_SLOTS = 32    # csrc/timeline.cu MAX_A
+TIMELINE_MAX_PAIRS = 3     # csrc/timeline.cu MAX_PAIRS
 MATCH_MAX_WIDTH = 256      # csrc/match.cu MAX_W (16 B a slot, up to
                            # 32 rows a block in shared memory)
 PROBE_MAX_WIDTH = 256      # csrc/probe.cu MAX_W (24 B a slot, up to 32
@@ -446,8 +448,10 @@ def _u32_2d(t, name: str, shape) -> torch.Tensor:
     return t.view(torch.int32).expand(shape).contiguous().view(torch.uint32)
 
 
-def _timeline(tab, member, key, gt, mode: int, perm: int, n_meta: int,
-              founder, name: str):
+def _timeline_args(tab, member, gt, keys, name: str):
+    """Check a K8 call's table and queries; returns (N, Q, A, member, gt,
+    keys), the queries broadcast to [N, Q] and made contiguous (u8 keys
+    stay u8)."""
     n, a = tab.member.shape
     for i, (c, dt) in enumerate(zip(tab[:4], (torch.uint32, torch.uint32,
                                                torch.uint32, torch.bool))):
@@ -455,53 +459,116 @@ def _timeline(tab, member, key, gt, mode: int, perm: int, n_meta: int,
     if not 1 <= a <= TIMELINE_MAX_SLOTS:
         raise KernelError(f"{name}: A = {a} not in "
                           f"[1, {TIMELINE_MAX_SLOTS}]")
-    shape = torch.broadcast_shapes(member.shape, key.shape, gt.shape)
+    shape = torch.broadcast_shapes(member.shape, gt.shape,
+                                   *(k.shape for k in keys))
     if len(shape) != 2 or shape[0] != n or shape[1] < 1:
         raise KernelError(f"{name}: queries of shape {tuple(shape)} for "
                           f"{n} rows")
-    member = _u32_2d(member, f"{name}.member", shape)
-    gt = _u32_2d(gt, f"{name}.gt", shape)
-    if key.dtype == torch.uint8:
-        key = key.expand(shape).contiguous()
-    else:
-        key = _u32_2d(key, f"{name}.key", shape)
-    f_ptr, f_stride, f_val = None, 0, 0
-    if isinstance(founder, torch.Tensor):
-        _req(founder, f"{name}.founder", (torch.uint32,), contiguous=False)
-        if founder.numel() == 1:
-            f_ptr = founder.reshape(1).contiguous()
+    out = []
+    for i, k in enumerate(keys):
+        if k.dtype in (torch.uint8, torch.bool):
+            _req(k, f"{name}.key[{i}]", (k.dtype,), contiguous=False)
+            out.append(k.expand(shape).contiguous())
         else:
-            f_ptr = founder.reshape(-1).contiguous()
-            if f_ptr.shape[0] != n:
-                raise KernelError(f"{name}: founder column of "
-                                  f"{f_ptr.shape[0]} rows for {n}")
-            f_stride = 1
-    else:
-        f_val = int(founder) & 0xFFFFFFFF
-    out = torch.empty(shape, dtype=torch.bool, device=member.device)
-    err = _fn("timeline", "dk_timeline_check", 19)(
-        *[c.data_ptr() for c in tab[:4]], member.data_ptr(), key.data_ptr(),
-        key.element_size(), gt.data_ptr(), n, shape[1], a, mode, perm,
-        n_meta, None if f_ptr is None else f_ptr.data_ptr(), f_stride,
-        f_val, out.data_ptr(), _stream())
+            out.append(_u32_2d(k, f"{name}.key[{i}]", shape))
+    return (n, shape[1], a, _u32_2d(member, f"{name}.member", shape),
+            _u32_2d(gt, f"{name}.gt", shape), out)
+
+
+def _founder_arg(founder, n: int, name: str):
+    """(column or None, stride, value) of a founder int or u32 column."""
+    if not isinstance(founder, torch.Tensor):
+        return None, 0, int(founder) & 0xFFFFFFFF
+    _req(founder, f"{name}.founder", (torch.uint32,), contiguous=False)
+    col = founder.reshape(-1).contiguous()
+    if col.shape[0] == 1:
+        return col, 0, 0
+    if col.shape[0] != n:
+        raise KernelError(f"{name}: founder column of {col.shape[0]} rows "
+                          f"for {n}")
+    return col, 1, 0
+
+
+def _timeline_check(tab, member, keys_perms, gt, founder, name: str):
+    """One K8 ``check`` launch over up to three (meta, perm) pairs."""
+    if not 1 <= len(keys_perms) <= TIMELINE_MAX_PAIRS:
+        raise KernelError(f"{name}: 1..{TIMELINE_MAX_PAIRS} (meta, perm) "
+                          f"pairs, got {len(keys_perms)}")
+    n, q, a, member, gt, keys = _timeline_args(
+        tab, member, gt, [k for k, _ in keys_perms], name)
+    col, stride, val = _founder_arg(founder, n, name)
+    outs = torch.empty((len(keys), n, q), dtype=torch.bool,
+                       device=member.device)
+    k_ptrs, o_ptrs = _ptrs(keys), _ptrs(outs)
+    sizes = _i64s([k.element_size() for k in keys])
+    perms = _i64s([int(p) for _, p in keys_perms])
+    err = _fn("timeline", "dk_timeline_check", 18)(
+        *[c.data_ptr() for c in tab[:4]], member.data_ptr(), gt.data_ptr(),
+        n, q, a, len(keys), ctypes.addressof(k_ptrs), ctypes.addressof(sizes),
+        ctypes.addressof(perms), None if col is None else col.data_ptr(),
+        stride, val, ctypes.addressof(o_ptrs), _stream())
     _check(err, "timeline", name)
-    return out
+    return tuple(outs)
 
 
 def timeline_check(tab, member, meta, gt, founder, perm: int):
     """K8 ``check``: bool [N, Q] (csrc/timeline.cu).  ``meta`` is u8 or
     u32; ``founder`` an int or a u32 column of one value per row."""
-    out = _timeline(tab, member, meta, gt, 0, perm, 0, founder,
-                    "timeline_check")
+    out, = _timeline_check(tab, member, [(meta, perm)], gt, founder,
+                           "timeline_check")
     LAUNCHES["timeline_check"] += 1
+    return out
+
+
+def timeline_check_many(tab, member, keys_perms, gt, founder):
+    """K8 ``check`` of one (member, gt, founder) query for each of up to
+    three (meta, perm) pairs, one walk of the table: a tuple of bool
+    [N, Q] (csrc/timeline.cu)."""
+    out = _timeline_check(tab, member, keys_perms, gt, founder,
+                          "timeline_check_many")
+    LAUNCHES["timeline_check_many"] += 1
+    return out
+
+
+def _timeline_grant(tab, member, mask, gt, n_meta: int, perm: int, is_rev,
+                    name: str):
+    """One K8 ``check_grant`` launch: ``perm`` for every query, or with
+    the bool ``is_rev`` the kernel's REVOKE where it is set and AUTHORIZE
+    elsewhere (``perm`` unused)."""
+    keys = [mask] if is_rev is None else [mask, is_rev]
+    n, q, a, member, gt, keys = _timeline_args(tab, member, gt, keys, name)
+    if keys[0].dtype != torch.uint32:
+        raise KernelError(f"{name}: mask dtype {keys[0].dtype} is not "
+                          "torch.uint32")
+    rev_ptr = None
+    if is_rev is not None:
+        if is_rev.dtype != torch.bool:
+            raise KernelError(f"{name}: is_rev dtype {is_rev.dtype} is not "
+                              "torch.bool")
+        rev_ptr = keys[1].data_ptr()
+    out = torch.empty((n, q), dtype=torch.bool, device=member.device)
+    err = _fn("timeline", "dk_timeline_check_grant", 15)(
+        *[c.data_ptr() for c in tab[:4]], member.data_ptr(),
+        keys[0].data_ptr(), gt.data_ptr(), n, q, a, n_meta, perm, rev_ptr,
+        out.data_ptr(), _stream())
+    _check(err, "timeline", name)
     return out
 
 
 def timeline_check_grant(tab, member, mask, gt, n_meta: int, perm: int):
     """K8 ``check_grant``: bool [N, Q] (csrc/timeline.cu)."""
-    out = _timeline(tab, member, mask, gt, 1, perm, n_meta, 0,
-                    "timeline_check_grant")
+    out = _timeline_grant(tab, member, mask, gt, n_meta, perm, None,
+                          "timeline_check_grant")
     LAUNCHES["timeline_check_grant"] += 1
+    return out
+
+
+def timeline_check_grant_rev(tab, member, mask, gt, is_rev, n_meta: int):
+    """K8 ``check_grant`` with the perm per query: REVOKE where the bool
+    ``is_rev`` is set, AUTHORIZE elsewhere (csrc/timeline.cu)."""
+    out = _timeline_grant(tab, member, mask, gt, n_meta, 0, is_rev,
+                          "timeline_check_grant_rev")
+    LAUNCHES["timeline_check_grant_rev"] += 1
     return out
 
 
@@ -540,10 +607,11 @@ def rank_compact_many(cols_fills, slot, width: int):
 # ---- K7: store stage -------------------------------------------------------
 
 def store_stage(staging, new, new_mask):
-    """Append the masked batch after each row's valid prefix, one warp per
-    row (csrc/stage.cu).  Returns the six [N, S] staging columns, the
-    landed mask and the i32[N] overflow count.  ``new``'s aux (u32 or u16)
-    is cast to the staging's aux width in the kernel."""
+    """Append the masked batch after each row's valid entries, a group of
+    lanes per row, every output slot written once (csrc/stage.cu).
+    Returns the six [N, S] staging columns, the landed mask and the
+    i32[N] overflow count.  ``new``'s aux (u32 or u16) is cast to the
+    staging's aux width in the kernel."""
     n, s = staging[0].shape
     b = new[0].shape[1]
     _req_cols(staging, "store_stage.staging", (n, s))
@@ -557,11 +625,13 @@ def store_stage(staging, new, new_mask):
            for dt in _store_dts(staging[4].dtype)]
     landed = torch.empty((n, b), dtype=torch.bool, device=dev)
     n_dropped = torch.empty(n, dtype=torch.int32, device=dev)
-    err = _fn("stage", "dk_store_stage", 27)(
-        *[c.data_ptr() for c in staging], *[c.data_ptr() for c in new],
+    # The host arrays stay referenced until the call returns.
+    s_ptrs, b_ptrs, o_ptrs = _ptrs(staging), _ptrs(new), _ptrs(out)
+    err = _fn("stage", "dk_store_stage", 12)(
+        ctypes.addressof(s_ptrs), ctypes.addressof(b_ptrs),
         new_mask.data_ptr(), n, s, b, staging[4].element_size(),
-        new[4].element_size(), *[c.data_ptr() for c in out],
-        landed.data_ptr(), n_dropped.data_ptr(), _stream())
+        new[4].element_size(), ctypes.addressof(o_ptrs), landed.data_ptr(),
+        n_dropped.data_ptr(), _stream())
     _check(err, "stage", "store_stage")
     LAUNCHES["store_stage"] += 1
     return (*out, landed, n_dropped)

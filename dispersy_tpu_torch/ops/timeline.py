@@ -3,11 +3,13 @@
 
 Each peer holds ``[A]`` grant/revoke rows (member, per-meta permission
 nibble mask, global time, revoke flag, issuer).  :func:`check` asks
-whether a member holds one permission for a meta at a global time;
+whether a member holds one permission for a meta at a global time
+(:func:`check_many` for up to three (meta, perm) pairs of one query);
 :func:`check_grant` whether a member may issue a grant or revoke
-covering a mask (the delegation-chain link test).  Both are wrappers: a
-CPU tensor takes the plain version beside them, a CUDA tensor the
-hand-written kernel of ``csrc/timeline.cu`` (K8) or an error.
+covering a mask (the delegation-chain link test; :func:`check_grant_rev`
+with the perm per query).  All four are wrappers: a CPU tensor takes the
+plain version beside them, a CUDA tensor the hand-written kernel of
+``csrc/timeline.cu`` (K8) or an error.
 
 :func:`fold` (insert accepted authorize/revoke records, keeping the A
 highest rows), :func:`revalidate` (re-walk every row's granting chain)
@@ -86,15 +88,34 @@ def check(tab: AuthTable, member, meta, gt, founder,
     return kernels.timeline_check(tab, member, meta, gt, founder, perm)
 
 
+def check_many_plain(tab: AuthTable, member, keys_perms, gt,
+                     founder) -> tuple:
+    """:func:`check_plain` of each (meta, perm) pair of ``keys_perms``."""
+    return tuple(check_plain(tab, member, meta, gt, founder, perm)
+                 for meta, perm in keys_perms)
+
+
+def check_many(tab: AuthTable, member, keys_perms, gt, founder) -> tuple:
+    """A tuple of bool[N, Q]: :func:`check` of one (member, gt, founder)
+    query for each of up to three (meta, perm) pairs of ``keys_perms``
+    (each meta u8 or u32), one walk of the table on the card."""
+    if member.device.type == "cpu":
+        return check_many_plain(tab, member, keys_perms, gt, founder)
+    return kernels.timeline_check_many(tab, member, keys_perms, gt, founder)
+
+
 def check_grant_plain(tab: AuthTable, member, mask, gt, n_meta: int,
-                      perm: int = PERM_AUTHORIZE) -> torch.Tensor:
-    """bool[N, Q]: the JAX package's broadcast form."""
+                      perm=PERM_AUTHORIZE) -> torch.Tensor:
+    """bool[N, Q]: the JAX package's broadcast form.  ``perm`` is an int
+    or an int64 [N, Q] column of one perm per query."""
     tm, tk, tg = (wide(c)[:, None, :] for c in (tab.member, tab.mask,
                                                  tab.gt))
     qm, qk, qg = wide(member), wide(mask), wide(gt)
     live = tm != EMPTY_U32
     base = live & (tm == qm[:, :, None]) & (tg <= qg[:, :, None])
     rev = tab.rev[:, None, :]
+    if isinstance(perm, torch.Tensor):
+        perm = perm[:, :, None]
     ok = qk != 0
     # Nibbles past bit 31 of a u32 mask are empty: they need nothing.
     for k in range(min(n_meta, MAX_TIMELINE_META)):
@@ -115,6 +136,29 @@ def check_grant(tab: AuthTable, member, mask, gt, n_meta: int,
     if member.device.type == "cpu":
         return check_grant_plain(tab, member, mask, gt, n_meta, perm)
     return kernels.timeline_check_grant(tab, member, mask, gt, n_meta, perm)
+
+
+def check_grant_rev_plain(tab: AuthTable, member, mask, gt, is_rev,
+                          n_meta: int) -> torch.Tensor:
+    """:func:`check_grant_plain` with REVOKE where ``is_rev`` is set and
+    AUTHORIZE elsewhere."""
+    shape = torch.broadcast_shapes(member.shape, mask.shape, gt.shape,
+                                   is_rev.shape)
+    perm = torch.where(torch.broadcast_to(is_rev, shape), PERM_REVOKE,
+                       PERM_AUTHORIZE).to(torch.int64)
+    return check_grant_plain(tab, member, mask, gt, n_meta, perm)
+
+
+def check_grant_rev(tab: AuthTable, member, mask, gt, is_rev,
+                    n_meta: int) -> torch.Tensor:
+    """bool[N, Q]: :func:`check_grant` with the perm per query -- REVOKE
+    where the bool ``is_rev`` is set, AUTHORIZE elsewhere; the same as
+    ``torch.where(is_rev, check_grant(.., PERM_REVOKE), check_grant(..,
+    PERM_AUTHORIZE))`` in one walk of the table on the card."""
+    if member.device.type == "cpu":
+        return check_grant_rev_plain(tab, member, mask, gt, is_rev, n_meta)
+    return kernels.timeline_check_grant_rev(tab, member, mask, gt, is_rev,
+                                            n_meta)
 
 
 class FoldResult(NamedTuple):

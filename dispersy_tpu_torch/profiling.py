@@ -565,6 +565,10 @@ def delivery_cases(n_peers: int = 1 << 20, seed: int = 0) -> dict:
     return cases
 
 
+SPIN_CYCLES_PER_S = 1.98e9  # the H100 SXM's highest SM clock (cycles of
+                            # torch.cuda._sleep a second, at most)
+
+
 def _flat(out) -> list:
     import torch
     if isinstance(out, torch.Tensor):
@@ -583,14 +587,25 @@ def _same(a, b) -> bool:
 
 def cuda_ms(fn, reps: int) -> float:
     """Median ms of ``reps`` calls of ``fn``, each between its own pair of
-    CUDA events, after 3 warm-up calls."""
+    CUDA events, after 3 warm-up calls.  The timed calls queue behind a
+    spin of the card (``torch.cuda._sleep``) as long as their enqueueing
+    takes on the host (at most 50 ms), so that a call shorter than its
+    wrapper's host work is timed by the device's work, not by the card
+    idling between the events while the host prepares the launch."""
     import statistics
+    import time
 
     import torch
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     evs = [(torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(min(1.5 * host_s * reps, 0.05) * SPIN_CYCLES_PER_S))
     for a, b in evs:
         a.record()
         fn()
@@ -1331,16 +1346,242 @@ def compact_cases(n_peers: int = 1 << 20, seed: int = 0,
     return cases
 
 
+def grant_table(x, n: int, a: int):
+    """Random [N, A] grant tables: members and global times from small
+    ranges (so queries hit, and grant and revoke rows tie), nibble masks
+    over the three metas, empty slots.  ``x`` draws (:class:`Draw`)."""
+    from dispersy_tpu_torch.ops import timeline as tl
+    live = x.rs.random((n, a)) < 0.7
+    member = np.where(live, x.rs.integers(0, 64, size=(n, a)), EMPTY_U32)
+    return tl.AuthTable(member=x.from_u32(member), mask=x.u32(n, a, hi=1 << 12),
+                        gt=x.u32(n, a, hi=40), rev=x.flags(0.3, n, a),
+                        issuer=x.from_u32(np.where(live, x.rs.integers(
+                            0, 64, size=(n, a)), EMPTY_U32)))
+
+
+def timeline_queries(x, n: int, q: int, u8: bool = True, empty=None):
+    """[N, Q] check queries: members and global times that hit the
+    :func:`grant_table` rows, metas 0-2 among control metas (out of the
+    nibble range; u8, or u32 with the 0xFFFF not-found sentinel); a share
+    ``empty`` of them free slots (member and gt EMPTY_U32), by default
+    the round's at this width (:data:`TIMELINE_EMPTY_SHARE`, else 0)."""
+    if empty is None:
+        empty = TIMELINE_EMPTY_SHARE.get(q, 0.0)
+    metas = [0, 1, 2, 0xF0, 0xF5] if u8 else [0, 1, 2, 0xF3, 0xFFFF]
+    meta = x.rs.choice(np.array(metas, np.uint32), size=(n, q))
+    meta = (x.torch.from_numpy(meta.astype(np.uint8)).to(x.dev) if u8
+            else x.from_u32(meta))
+    free = x.rs.random((n, q)) < empty
+    member = np.where(free, EMPTY_U32, x.rs.integers(0, 64, size=(n, q)))
+    gt = np.where(free, EMPTY_U32, x.rs.integers(0, 48, size=(n, q)))
+    return x.from_u32(member), meta, x.from_u32(gt)
+
+
+# The share of K8's queries that are free slots (member EMPTY_U32) at
+# each query width of the 1M permissioned round: the intake's batch
+# (Q = 24), the retro pass's store rows (48), the author gate (1).  Read
+# by :func:`timeline_query_shares` (8 rounds of chip_smoke.py's
+# permissioned main path) on an NVIDIA H100 80GB HBM3; the timed K8 cases
+# draw their queries with it.
+TIMELINE_EMPTY_SHARE = {24: 0.20836218694845834, 48: 0.13767162296507093,
+                        1: 0.0}
+
+
+def timeline_query_shares(n_peers: int = 1 << 20, rounds: int = 8,
+                          seed: int = 0, dev="cuda") -> dict:
+    """The queries K8 gets in ``rounds`` rounds of the permissioned round
+    of :func:`permissioned_config` driven by :func:`permissioned_schedule`
+    (no destroy), as ``chip_smoke.py``'s permissioned main path drives
+    it: for each entry and query width, the launches, the queries, the
+    share of them free slots (member EMPTY_U32), the share of the others
+    with a gt of 2^31 or more, and the share of table rows holding such a
+    gt (off K8's 32-bit fast path).  ``python -m
+    dispersy_tpu_torch.profiling --timeline-shares`` prints it as one JSON
+    line."""
+    import torch
+
+    from dispersy_tpu_torch import engine
+    from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.state import init_state
+
+    cfg = permissioned_config(n_peers)
+    creates = permissioned_schedule(n_peers, destroy=False)
+    seen: dict = {}
+
+    def counted(name, fn):
+        def call(tab, member, key, gt, *args, **kw):
+            m, g = torch.broadcast_tensors(member.view(torch.int32),
+                                           gt.view(torch.int32))
+            free = m == -1
+            row = seen.setdefault(f"{name} Q={m.shape[1]}", [0, 0, 0, 0,
+                                                              0, 0])
+            row[0] += 1
+            row[1] += m.numel()
+            row[2] += int(free.sum())
+            row[3] += int((~free & (g < 0)).sum())
+            row[4] += tab.gt.shape[0]
+            row[5] += int((tab.gt.view(torch.int32) < 0).any(1).sum())
+            return fn(tab, member, key, gt, *args, **kw)
+        return call
+    saved = {k: getattr(tl, k) for k in ("check", "check_many",
+                                         "check_grant", "check_grant_rev")}
+    try:
+        for k, fn in saved.items():
+            setattr(tl, k, counted(k, fn))
+        state = engine.seed_overlay(init_state(cfg, seed, device=dev),
+                                    cfg, 8)
+        for rnd in range(rounds):
+            state = engine.step(run_creates(state, cfg, creates, rnd), cfg)
+    finally:
+        for k, fn in saved.items():
+            setattr(tl, k, fn)
+    return {"n_peers": n_peers, "rounds": rounds, "calls": {
+                k: {"launches": c, "queries": nq, "empty_share": e / nq,
+                    "high_gt_share": h / max(nq - e, 1),
+                    "high_table_row_share": hr / rows}
+                for k, (c, nq, e, h, rows, hr) in sorted(seen.items())}}
+
+
+def timeline_stage_cases(n_peers: int = 1 << 20, seed: int = 0,
+                         dev="cuda") -> dict:
+    """K8's and K7's call shapes in the rounds at ``n_peers`` peers, on
+    random inputs made with a numpy seed, in the form of
+    :func:`store_cases`: K8 ``check`` at the intake's [N, 24] (u8 metas, a
+    founder column), the retro pass's [N, 48] and the author gate's
+    [N, 1] (u32 metas); ``check_grant`` at [N, 24] and [N, 48]; the
+    intake's fused launches -- ``check_many`` of its three (meta, perm)
+    pairs, ``check_grant_rev`` at [N, 24] and [N, 48], and the two
+    together; K7 at the diet round's [N, 24] batch (u32 aux) into its
+    [N, 8] staging buffer (u16 aux).  On a checkout without the fused
+    entries (the parent) each fused case runs the calls it replaces:
+    three ``check`` launches, two ``check_grant`` launches.  K8's bytes:
+    the table's four columns (13 B a slot), the queries, the founder
+    column and the verdicts; K7's: the mask, the staging row, the
+    columns of the arrivals that land, every output."""
+    import torch
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import (PERM_AUTHORIZE, PERM_PERMIT,
+                                           PERM_REVOKE, PERM_UNDO)
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.ops import timeline as tl
+
+    x = Draw(seed, dev)
+    perm, diet = permissioned_config(n_peers), bench_config(n_peers)
+    n, a, m, nm = n_peers, perm.k_authorized, perm.msg_capacity, perm.n_meta
+    b = perm.response_budget + perm.push_inbox
+    tab = grant_table(x, n, a)
+    t_bytes = 13 * n * a
+    founder = x.u32(n, 1, hi=64)
+    # The parent checkout (c2161aa) has no fused entries: its cases run
+    # the calls they replace.  Kept only for that comparison.
+    fused = hasattr(kernels, "timeline_check_many")
+    cases = {}
+
+    def check(name, q, u8):
+        member, meta, gt = timeline_queries(x, n, q, u8)
+        args = (tab, member, meta, gt, founder, PERM_PERMIT)
+        cases[name] = (lambda: kernels.timeline_check(*args),
+                       lambda: tl.check_plain(*args), None,
+                       t_bytes + _nbytes(member, meta, gt, founder) + n * q,
+                       "timeline_check")
+    check("check_intake", b, True)
+    check("check_retro", m, True)
+    check("check_gate", 1, False)
+
+    def grant_mask(q):
+        return x.u32(n, q, hi=1 << 12)
+    for name, q in (("check_grant_intake", b), ("check_grant_retro", m)):
+        member, _, gt = timeline_queries(x, n, q)
+        args = (tab, member, grant_mask(q), gt, nm, PERM_AUTHORIZE)
+        cases[name] = (lambda args=args: kernels.timeline_check_grant(*args),
+                       lambda args=args: tl.check_grant_plain(*args), None,
+                       t_bytes + _nbytes(*args[1:4]) + n * q,
+                       "timeline_check_grant")
+
+    # The intake's three checks: undo (u32 stored metas with the
+    # not-found sentinel), flip (u32 payloads naming a meta), permit (u8).
+    member, meta8, gt = timeline_queries(x, n, b)
+    _, undo_meta, _ = timeline_queries(x, n, b, u8=False)
+    flip = x.u32(n, b, hi=4)
+    pairs = ((undo_meta, PERM_UNDO), (flip, PERM_AUTHORIZE),
+             (meta8, PERM_PERMIT))
+
+    def many():
+        if fused:
+            return kernels.timeline_check_many(tab, member, pairs, gt,
+                                               founder)
+        return tuple(kernels.timeline_check(tab, member, k, gt, founder, p)
+                     for k, p in pairs)
+
+    def many_plain():
+        return tuple(tl.check_plain(tab, member, k, gt, founder, p)
+                     for k, p in pairs)
+    cases["check_many_intake"] = (
+        many, many_plain, None,
+        t_bytes + _nbytes(member, gt, founder, *(k for k, _ in pairs))
+        + 3 * n * b, "timeline_check_many")
+
+    def grant_rev(q):
+        g_member, _, g_gt = timeline_queries(x, n, q)
+        mask, is_rev = grant_mask(q), x.flags(0.5, n, q)
+        args = (tab, g_member, mask, g_gt)
+
+        def kernel():
+            if fused:
+                return kernels.timeline_check_grant_rev(*args, is_rev, nm)
+            return (kernels.timeline_check_grant(*args, nm, PERM_REVOKE),
+                    kernels.timeline_check_grant(*args, nm, PERM_AUTHORIZE))
+
+        def plain():
+            rev = tl.check_grant_plain(*args, nm, PERM_REVOKE)
+            auth = tl.check_grant_plain(*args, nm, PERM_AUTHORIZE)
+            return torch.where(is_rev, rev, auth) if fused else (rev, auth)
+        return (kernel, plain, None,
+                t_bytes + _nbytes(*args[1:], is_rev) + n * q,
+                "timeline_check_grant_rev")
+    cases["check_grant_rev_intake"] = grant_rev(b)
+    cases["check_grant_rev_retro"] = grant_rev(m)
+    g_kernel, g_plain, _, g_moved, _ = cases["check_grant_rev_intake"]
+    cases["intake_fused"] = (
+        lambda: (many(), g_kernel()), lambda: (many_plain(), g_plain()), None,
+        cases["check_many_intake"][3] + g_moved - t_bytes,
+        "timeline_check_many")
+
+    s, bw = diet.store.staging, diet.response_budget + diet.push_inbox
+    staging = diet_cols(x, n, s, prefix=True)
+    batch = st.StoreCols(
+        gt=x.u32(n, bw, hi=200), member=x.u32(n, bw, hi=6),
+        meta=x.u8(n, bw, hi=4), payload=x.u32(n, bw), aux=x.u32(n, bw),
+        flags=x.u8(n, bw, hi=2))
+    new_mask = x.flags(0.25, n, bw)
+    cast_b = st.as_store_dtypes(batch, staging)
+    want = st.store_stage_plain(staging, cast_b, new_mask)
+    landed = int(want.landed.sum())
+    slot_b = sum(c.element_size() for c in staging)
+    cases["stage_diet"] = (
+        lambda: kernels.store_stage(staging, batch, new_mask),
+        lambda: st.store_stage_plain(staging, cast_b, new_mask), None,
+        _nbytes(new_mask) + n * s * slot_b
+        + landed * sum(c.element_size() for c in batch)
+        + _nbytes(*want.staging, want.landed, want.n_dropped),
+        "store_stage")
+    return cases
+
+
 def profile_store(n_peers: int = 1 << 20, reps: int = 20,
                   seed: int = 0, cases: str = "store") -> dict:
     """Each of :func:`store_cases` (``cases="store"``: K3, K9), of
-    :func:`probe_cases` (``"probe"``: K11, K2, K6) or of
-    :func:`compact_cases` (``"compact"``: K4, K5) on the card: the kernel
+    :func:`probe_cases` (``"probe"``: K11, K2, K6), of
+    :func:`compact_cases` (``"compact"``: K4, K5) or of
+    :func:`timeline_stage_cases` (``"timeline_stage"``: K8, K7) on the
+    card: the kernel
     held bit for bit against its plain version, then the kernel (``reps``
     launches), K3's ``torch.sort`` yardstick (``reps``) and the plain
     version (5) timed with CUDA events (medians), beside the bytes bound
     at 3.35 TB/s.  ``python -m dispersy_tpu_torch.profiling --store``
-    (``--probe``, ``--compact``) prints it as one JSON line."""
+    (``--probe``, ``--compact``, ``--timeline-stage``) prints it as one
+    JSON line."""
     import subprocess
 
     import torch
@@ -1357,7 +1598,8 @@ def profile_store(n_peers: int = 1 << 20, reps: int = 20,
            "kernels": str(Path(kernels.__file__).resolve().parent),
            "cases": {}}
     make = {"store": store_cases, "probe": probe_cases,
-            "compact": compact_cases}[cases]
+            "compact": compact_cases,
+            "timeline_stage": timeline_stage_cases}[cases]
     for name, (kernel, plain, yardstick, moved, key) in make(
             n_peers, seed).items():
         if not _same(kernel(), plain()):
@@ -1428,6 +1670,15 @@ if __name__ == "__main__":
                        "rounds and K5 on rings out of order "
                        "(profile_store's compact cases); with checkout "
                        "ROOTs, once on each in turn")
+    which.add_argument("--timeline-stage", nargs="*", metavar="ROOT",
+                       help="time K8 at each call shape of the 1M "
+                       "permissioned round (the fused intake launches "
+                       "beside the calls they replace) and K7 at the diet "
+                       "round's (profile_store's timeline_stage cases); "
+                       "with checkout ROOTs, once on each in turn")
+    which.add_argument("--timeline-shares", action="store_true",
+                       help="count the free-slot share of K8's queries in "
+                       "the 1M permissioned round (timeline_query_shares)")
     which.add_argument("--diet", action="store_true",
                        help="trace the byte-diet round of bench_config")
     which.add_argument("--timeline", action="store_true",
@@ -1441,8 +1692,12 @@ if __name__ == "__main__":
     if args.delivery:
         print(json.dumps(profile_delivery()))
         raise SystemExit(0)
+    if args.timeline_shares:
+        print(json.dumps(timeline_query_shares()))
+        raise SystemExit(0)
     for cases, roots in (("store", args.store), ("probe", args.probe),
-                         ("compact", args.compact)):
+                         ("compact", args.compact),
+                         ("timeline_stage", args.timeline_stage)):
         if roots is not None:
             runs = (profile_store_roots(roots, cases) if roots
                     else [profile_store(cases=cases)])

@@ -568,11 +568,14 @@ def test_digest_update_and_row_salts(n, m, w, k, salt_kind):
     assert not np.array_equal(to_np(got), dig) or not mask.any()
 
 
-STAGE_SHAPES = [  # (N, S, B, p_mask, live fill)
+STAGE_SHAPES = [  # (N, S, B, p_mask, live fill or "holes" / "full")
     (DIMS["N"], DIMS["M"], DIMS["B"], 0.7, 0.5),
     (32, 8, 24, 0.3, 0.4),     # the bench shape: S = 8, B = b + push
     (16, 8, 24, 0.9, 0.9),     # overflow everywhere
     (12, 3, 40, 0.5, 0.0),     # an empty staging buffer, a wide batch
+    (32, 8, 24, 0.4, "holes"),  # holes among the valid entries
+    (16, 8, 24, 0.5, "full"),  # every row full: every arrival dropped
+    (16, 32, 24, 0.6, 0.5),    # S = 32, the kernel's widest row
 ]
 
 
@@ -580,10 +583,16 @@ STAGE_SHAPES = [  # (N, S, B, p_mask, live fill)
 @pytest.mark.parametrize("aux16", [False, True])
 def test_store_stage(n, s, b, p, fill, aux16):
     rs = np.random.default_rng(n * s + b)
-    # A staging buffer with a valid prefix and EMPTY holes after it.
-    cols = ring(rs, n, s)
-    live = np.arange(s)[None, :] < (rs.random(n) * (s + 1) * fill).astype(
-        int)[:, None]
+    # A staging buffer with a valid prefix and EMPTY holes after it, with
+    # holes among its valid entries (cnt counts them; arrivals overwrite
+    # slot cnt + rank), or full.
+    if fill in ("holes", "full"):
+        cols = batch(rs, n, s)             # every slot a record
+        live = rs.random((n, s)) < (0.6 if fill == "holes" else 2)
+    else:
+        cols = ring(rs, n, s)
+        live = np.arange(s)[None, :] < (rs.random(n) * (s + 1) * fill
+                                        ).astype(int)[:, None]
     for c, empty in zip(range(6), (U32_MAX, U32_MAX, 255, U32_MAX, 0, 0)):
         cols[c] = np.where(live, cols[c], empty).astype(cols[c].dtype)
     if aux16:
@@ -597,7 +606,7 @@ def test_store_stage(n, s, b, p, fill, aux16):
                          st.StoreCols(*map(to_t, bt)), to_t(mask))
     same(got.staging, want.staging)
     same(got[1:], want[1:])
-    if p > 0.8:
+    if p > 0.8 or fill == "full":
         assert to_np(got.n_dropped).sum() > 0
 
 

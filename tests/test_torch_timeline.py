@@ -2,7 +2,8 @@
 the JAX package's op on the same numpy inputs, bit for bit (tolerance 0:
 every op here is integer work).
 
-The kernel ops -- K8 ``check`` / ``check_grant`` (``ops/timeline.py``),
+The kernel ops -- K8 ``check`` / ``check_grant`` and their fused
+entries ``check_many`` / ``check_grant_rev`` (``ops/timeline.py``),
 K9's five store replays (``ops/intake.py``), K10 ``store_remove`` and K3
 ``store_insert`` with a LastSync ``history`` (``ops/store.py``) -- are held
 against every form the JAX package has (its broadcast and chunked
@@ -127,6 +128,108 @@ def test_check_grant(n, a, q):
             jnp.asarray(gt))
         same([got], [want])
     assert int(to_np(got).sum()) > 0
+
+
+HIGH_GTS = np.array([0x7FFFFFFE, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                     0xFFFFFFFF], np.uint32)
+
+
+def with_high_gts(rs, gt, p=0.15):
+    """``gt`` with a fraction ``p`` of its entries about 2^31 and at the
+    top of the u32 range (the kernel's 64-bit key path)."""
+    return np.where(rs.random(gt.shape) < p,
+                    rs.choice(HIGH_GTS, size=gt.shape), gt).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n,a,q", TABLE_SHAPES)
+def test_check_many(n, a, q):
+    """The fused ``check`` of the intake's three (meta, perm) pairs --
+    u32 stored metas with the not-found sentinel under UNDO, u32 flip
+    payloads under AUTHORIZE, u8 record metas under PERMIT -- against
+    the JAX package's ``check`` called once per pair, with global times
+    about 2^31 among them."""
+    rs = np.random.default_rng(7 * n + a + q)
+    cols = list(table(rs, n, a))
+    cols[2] = with_high_gts(rs, cols[2])
+    member = u32(rs, n, q, hi=6)
+    gt = with_high_gts(rs, u32(rs, n, q, hi=14))
+    undo_meta = rs.choice(np.array([0, 1, 2, 7, 8, 0xFFFF], np.uint32),
+                          size=(n, q))
+    payload = u32(rs, n, q, hi=10)
+    meta8 = rs.choice(np.array([0, 1, 2, 3, 0xF0, 0xF4], np.uint8),
+                      size=(n, q))
+    pairs = ((undo_meta, PERM_UNDO), (payload, PERM_AUTHORIZE),
+             (meta8, PERM_PERMIT))
+    founder = u32(rs, n, 1, hi=6)
+    got = tl.check_many(ttab(cols), to_t(member),
+                        [(to_t(k), p) for k, p in pairs], to_t(gt),
+                        to_t(founder))
+    want = [jitted(jtl.check, perm=p)(
+        jtab(cols), jnp.asarray(member), jnp.asarray(k), jnp.asarray(gt),
+        jnp.asarray(founder)) for k, p in pairs]
+    same(got, want)
+    for g in got:
+        assert 0 < int(to_np(g).sum()) < n * q
+
+
+@pytest.mark.parametrize("impl", ["broadcast", "chunked"])
+@pytest.mark.parametrize("n,a,q", TABLE_SHAPES)
+def test_check_grant_rev(n, a, q, impl):
+    """``check_grant`` with the perm per query (REVOKE where the record
+    is a revoke) against ``jnp.where`` of the JAX package's two
+    ``check_grant`` calls, in both of its forms; empty masks and nibbles
+    past ``n_meta`` among the masks."""
+    rs = np.random.default_rng(11 * n + a + q)
+    cols = list(table(rs, n, a))
+    cols[2] = with_high_gts(rs, cols[2])
+    member = u32(rs, n, q, hi=6)
+    nib = rs.integers(0, 16, size=(n, q, 3)) * (rs.random((n, q, 3)) < 0.5)
+    mask = (nib[..., 0] | (nib[..., 1] << 4) | (nib[..., 2] << 28)).astype(
+        np.uint32)
+    gt = with_high_gts(rs, u32(rs, n, q, hi=14))
+    is_rev = rs.random((n, q)) < 0.5
+
+    def both(tab, member, mask, gt, is_rev):
+        return jnp.where(
+            is_rev,
+            jtl.check_grant(tab, member, mask, gt, 3, perm=PERM_REVOKE,
+                            impl=impl),
+            jtl.check_grant(tab, member, mask, gt, 3, perm=PERM_AUTHORIZE,
+                            impl=impl))
+    want = jax.jit(both)(jtab(cols), *map(jnp.asarray,
+                                          (member, mask, gt, is_rev)))
+    got = tl.check_grant_rev(ttab(cols), to_t(member), to_t(mask), to_t(gt),
+                             to_t(is_rev), 3)
+    same([got], [want])
+    assert 0 < int(to_np(got).sum()) < n * q
+
+
+def test_timeline_wrappers_refuse_cpu_tensors():
+    """K8's four wrappers and K7's launch their kernels on CUDA tensors or
+    raise: none falls back to the plain version (the ops take that for a
+    CPU tensor before they reach them)."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.exceptions import KernelError
+    rs = np.random.default_rng(3)
+    tab = ttab(table(rs, 4, 8))
+    member, gt = to_t(u32(rs, 4, 2, hi=6)), to_t(u32(rs, 4, 2, hi=14))
+    meta = to_t(u32(rs, 4, 2, hi=3))
+    is_rev = to_t(rs.random((4, 2)) < 0.5)
+    for call in (
+            lambda: kernels.timeline_check(tab, member, meta, gt, 0, 0),
+            lambda: kernels.timeline_check_many(tab, member, [(meta, 0)],
+                                                gt, 0),
+            lambda: kernels.timeline_check_grant(tab, member, meta, gt, 3,
+                                                 PERM_AUTHORIZE),
+            lambda: kernels.timeline_check_grant_rev(tab, member, meta, gt,
+                                                     is_rev, 3)):
+        with pytest.raises(KernelError, match="CUDA"):
+            call()
+    stc = st.StoreCols(*(to_t(c) for c in (
+        u32(rs, 4, 8), u32(rs, 4, 8), rs.integers(0, 4, (4, 8), np.uint8),
+        u32(rs, 4, 8), u32(rs, 4, 8), rs.integers(0, 2, (4, 8), np.uint8))))
+    with pytest.raises(KernelError, match="CUDA"):
+        kernels.store_stage(stc, stc, to_t(rs.random((4, 8)) < 0.5))
 
 
 @pytest.mark.parametrize("n,a,b,fill", [(24, 8, 6, 0.6), (12, 4, 9, 1.0)])
