@@ -2,15 +2,18 @@
 """Round times of ``chip_smoke.py``'s six main paths, for two checkouts on
 one card, in turns.
 
-    python3 chip_ab.py OTHER_ROOT
+    python3 chip_ab.py OTHER_ROOT [PATH ...]
 
-runs the main paths of the checkout at ``OTHER_ROOT`` (say, the parent
+runs the main paths (or only the named ones, in the order given: say
+``chaos chaos_flat``) of the checkout at ``OTHER_ROOT`` (say, the parent
 commit unpacked with ``git archive`` into a git-ignored directory) and of
 this one in the order other, this, this, other -- each run a process of
 its own that imports its checkout's ``chip_smoke.py`` and builds its
 kernels -- and prints one JSON line a run (``{"tag", "root", "paths":
-{path: {"ms", "round_ms", "peak_gib"}}}``), then for each path the
-medians side by side and every run's round times and peak memory.
+{path: {"ms", "round_ms", "peak_gib", "allocator"}}}``), then for each
+path the medians side by side and every run's round times, peak memory
+and the caching allocator's cudaMalloc, cudaFree and retry counts in
+the timed rounds (where the checkout's ``chip_smoke.py`` records them).
 Needs a CUDA card.
 """
 
@@ -24,9 +27,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def run_paths(root: str) -> dict:
+def run_paths(root: str, only: list) -> dict:
     """The six main paths of the checkout at ``root`` (already first on
-    ``sys.path``), as ``chip_smoke.main`` drives them."""
+    ``sys.path``), or those named in ``only`` in its order, as
+    ``chip_smoke.main`` drives them, in one process."""
     import chip_smoke as cs
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.profiling import (POST, SEQ_TEXT, bench_config,
@@ -59,32 +63,34 @@ def run_paths(root: str) -> dict:
         "chaos_flat": (chaos_config(n, 0), cs.CHAOS_FLAT_PATH, cs.WARMUP,
                        cs.ROUNDS, one, (64, 2, 1, 64), None)}
     out = {}
-    for path, (cfg, needed, warmup, rounds, creates, record,
-               spread) in mains.items():
+    for path in only or mains:
+        cfg, needed, warmup, rounds, creates, record, spread = mains[path]
         r = cs.main_phase(cfg, path, needed, cs.SEED, warmup, rounds,
                           creates, record, spread=spread)
         out[path] = {"ms": r["ms_per_round"], "round_ms": r["round_ms"],
-                     "peak_gib": r["peak_mem_gib"]}
+                     "peak_gib": r["peak_mem_gib"],
+                     "allocator": r.get("allocator_timed")}
     return out
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--run"]:
-        root, tag = sys.argv[2], sys.argv[3]
+        root, tag, only = sys.argv[2], sys.argv[3], sys.argv[4:]
         sys.path.insert(0, root)
         print("AB " + json.dumps({"tag": tag, "root": root,
-                                  "paths": run_paths(root)}), flush=True)
+                                  "paths": run_paths(root, only)}),
+              flush=True)
         return 0
     import torch
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    if len(sys.argv) < 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    other = str(Path(sys.argv[1]).resolve())
+    other, only = str(Path(sys.argv[1]).resolve()), sys.argv[2:]
     runs = []
     for tag, root in (("other", other), ("this", str(HERE)),
                       ("this", str(HERE)), ("other", other)):
         proc = subprocess.run([sys.executable, str(HERE / "chip_ab.py"),
-                               "--run", root, tag], cwd=root,
+                               "--run", root, tag, *only], cwd=root,
                               capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("AB ")]
@@ -100,7 +106,9 @@ def main() -> int:
             got = r["paths"][path]
             print(f"  {r['tag']:5s} rounds " + " ".join(
                 f"{t:.2f}" for t in got["round_ms"])
-                + f"  peak {got['peak_gib']:.4f} GiB", flush=True)
+                + f"  peak {got['peak_gib']:.6f} GiB"
+                + (f"  allocator {got['allocator']}" if got.get("allocator")
+                   else ""), flush=True)
     return 0
 
 

@@ -11,7 +11,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernels: every kernel of the five paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes (K1 at each of its call shapes, and the delivery
-   core's corners for K1, K1 with classes and K12; K2's and K6's
+   core's corners for K1, K1 with classes and K12; K12's capped corners
+   at 2 and 8 shards: a ~100k-edge crossing group, one of all 256
+   classes, the boundary at a row's first edge and at the padded last
+   row's last edge, budgets 1 and El - 1, a budget binding in some
+   buckets only; K2's and K6's
    corners: W = 3, 15, 77, 256 by M = 1, 31, 48, unsalted, one salt and
    a salt a row, strided inbox and cohort views; K3 at the intake
    merge and the one-record insert, and K3's corners: rings out of
@@ -34,16 +38,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    queries; empty masks; n_meta 0 and 9; the store
    replays in each K9 mode at the intake's and the retro pass's shapes,
    and K9's corners: Q = 1, 24, 48, nothing or everything selected,
-   times at and above 2^31, several rows of one key; store_remove, K3
+   times at and above 2^31, several rows of one key; store_remove, and
+   K10's corners: M = 1, 33, 48, u16 and u32 aux, nothing, everything
+   or only dead slots killed, full rows, holes, misaligned columns; K3
    with a LastSync history), then the hardened round's
    (the store probes in each K11 mode, with planted hits, and K11's
    corners: every slot or no slot selecting, B = 1, M = 1, M = 45, N
    not a multiple of a block's rows, values at 2^31 and 0xFFFFFFFE,
    identity metas on empty slots, one key queried 24 times), then the
    chaos round's (K12 on the capped push blast with admission classes,
-   on the exact request channel with receipts, where it must also equal
-   K1, and on the exact puncture channels; K1 with classes on the
-   unsharded push blast) -- held bit
+   drawn with the 1M round's shares, at the round's budget and at one
+   that binds nowhere, on the exact request channel with receipts, where
+   it must also equal K1, and on the exact puncture channels; K1 with
+   classes on the unsharded push blast)
+   -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events (queued behind a spin of the card, so that a call shorter
    than its wrapper's host work is timed by the card's work) beside the
@@ -106,7 +114,6 @@ PERM_PARITY_ROUNDS = 22        # the whole schedule, the destroy included
 HARD_PARITY_ROUNDS = 20
 CHAOS_PARITY_ROUNDS, CHAOS_PARITY_BUDGET = 20, 64
 CHAOS_BUDGET = 4096            # the 1M main path's cross_shard_budget
-P_PUSH = 0.05                  # valid push edges in the chaos kernel rows
 WARMUP, ROUNDS = 3, 5          # the legacy and permissioned main paths
 DIET_WARMUP, DIET_ROUNDS = 3, 24   # the diet main path: two windows
 REPS = 20                      # timed launches per kernel (median)
@@ -347,7 +354,36 @@ def check_deliver_corners(x: Draw, reps: int) -> list:
                      f"{c is not None}) disagrees with its plain version")
         print(f"deliver corner {name}: E {e}, Q {q}, K1 and K12 bit-equal",
               flush=True)
+    check_ragged_corners(x, n)
     return []
+
+
+def check_ragged_corners(x: Draw, n: int) -> None:
+    """K12's capped corners (``profiling.ragged_corner``), untimed, each
+    held bit for bit against the plain version on the card at E =
+    1,000,003 (not a multiple of the shards: a padded last row) over
+    ``n`` destinations, 2 and 8 shards, with classes and receipts, with
+    classes alone and with neither: a crossing destination of ~100k
+    edges per row with the boundary deep inside it, a crossing group
+    of all 256 classes, the boundary at a row's first edge and at the
+    padded last row's last edge, budgets 1 and El - 1, and a budget that
+    binds in some buckets only."""
+    from dispersy_tpu_torch.profiling import RAGGED_CORNERS, ragged_corner
+    e, q = 1_000_003, 4
+    cols = [x.u32(e), x.u8(e), x.u16(e), x.flags(0.5, e), x.u32(e, 3)]
+    for s in (2, 8):
+        for name in RAGGED_CORNERS:
+            dst, valid, cls, budget = ragged_corner(x.rs, name, n, e, s)
+            dst, valid, cls = (x.put(a) for a in (dst, valid, cls))
+            for c, receipts in ((cls, True), (cls, False), (None, False)):
+                got, want = ragged_case(x, dst, valid, cols, n, q, s,
+                                        budget, c, receipts)
+                if max_abs_err(got, want):
+                    fail(f"K12 corner {name} (shards {s}, budget {budget},"
+                         f" classes {c is not None}, receipts {receipts}) "
+                         "disagrees with its plain version")
+            print(f"K12 corner {name}: shards {s}, budget {budget}, "
+                  f"shed {int(got[-1].sum())}, bit-equal", flush=True)
 
 
 def check_bloom(x: Draw, reps: int) -> list:
@@ -619,19 +655,6 @@ def check_compact(x: Draw, reps: int) -> list:
             compact_row("rank_compact_many_forward", fcols, fslot, fb, reps)]
 
 
-def to_card(x: Draw, a):
-    """A numpy array on the card (u32 and u16 through their signed
-    views)."""
-    torch = x.torch
-    a = x.np.ascontiguousarray(a)
-    if a.dtype == x.np.uint32:
-        return x.from_u32(a)
-    if a.dtype == x.np.uint16:
-        return torch.from_numpy(a.view(x.np.int16)).to(x.dev).view(
-            torch.uint16)
-    return torch.from_numpy(a).to(x.dev)
-
-
 def check_compact_corners(x: Draw, reps: int) -> list:
     """K4 on the inputs its gather branches on, untimed, bit-equal to the
     plain version at N = 2^16 + 3 (not a multiple of a block's rows):
@@ -646,8 +669,8 @@ def check_compact_corners(x: Draw, reps: int) -> list:
     for name, kw in cases.items():
         w, width = kw.pop("w"), kw.pop("width")
         slot, cols = compact_arrays(x.rs, n, w, width, **kw)
-        slot = to_card(x, slot)
-        cols = [(to_card(x, c), f) for c, f in cols]
+        slot = x.put(slot)
+        cols = [(x.put(c), f) for c, f in cols]
         err = max_abs_err(kernels.rank_compact_many(cols, slot, width),
                           st.rank_compact_many_plain(cols, slot, width))
         if err != 0:
@@ -696,7 +719,7 @@ def check_intake_corners(x: Draw, reps: int) -> list:
     n = (1 << 16) + 3
     for name, kw in INTAKE_CORNERS.items():
         kw = dict(kw)
-        sg, sm, qm, qg, ok = (to_card(x, a) for a in intake_arrays(
+        sg, sm, qm, qg, ok = (x.put(a) for a in intake_arrays(
             x.rs, n, kw.pop("m"), kw.pop("b"), **kw))
         want = (intake.in_store_plain(sg, sm, qm, qg),
                 intake.dup_earlier_plain(qm, qg, ok))
@@ -1092,7 +1115,8 @@ def misaligned(c):
     """A contiguous copy of the [N, A] column ``c`` one element past an
     aligned address (so a kernel cannot take its 16-byte loads)."""
     import torch
-    bits = c.view(torch.uint8 if c.dtype == torch.bool else torch.int32)
+    bits = c.view({torch.bool: torch.uint8, torch.uint8: torch.uint8,
+                   torch.uint16: torch.int16}.get(c.dtype, torch.int32))
     buf = torch.empty(c.numel() + 1, dtype=bits.dtype, device=c.device)
     buf[1:] = bits.reshape(-1)
     return buf[1:].view(c.shape).view(c.dtype)
@@ -1285,24 +1309,62 @@ def check_store_match_corners(x: Draw, reps: int) -> list:
 
 
 def check_remove(x: Draw, reps: int) -> list:
-    """K10 on the [N, 48] ring with a kill mask.  Bytes: the gt column and
-    the mask, the survivors' other five columns (14 B), every output."""
+    """K10 on the round's [N, 48] rings and kill masks
+    (``profiling.remove_inputs``: no slot killed, 86% of slots live).
+    Bytes: the gt column and the mask, the survivors' other five columns
+    (14 B), every output."""
     from dispersy_tpu_torch import kernels
     from dispersy_tpu_torch.ops import store as st
-    store, _ = store_inputs(x)
-    n, m = store.gt.shape
-    kill = x.flags(0.2, n, m)
+    from dispersy_tpu_torch.profiling import REMOVE_SHARES, remove_inputs
+    n, m = x.cfg.n_peers, x.cfg.msg_capacity
+    store, kill = remove_inputs(x, n, m)
     got = list(kernels.store_remove(store, kill))
     want = st.store_remove_plain(store, kill)
     kept = int((got[0].view(x.torch.int32) != -1).sum())
-    if not bool(want.n_removed.any()):
-        fail("store_remove inputs remove nothing")
+    rows = REMOVE_SHARES["live_rows"]
+    share = sum(i * c for i, c in enumerate(rows)) / (sum(rows) * m)
+    if abs(kept / (n * m) - share) > 0.01:
+        fail(f"store_remove inputs: {kept / (n * m)} of slots live, the "
+             f"round's rings {share}")
     return [timed_entry(
         "store_remove", "cuda", "dispersy_tpu_torch/csrc/remove.cu",
         "dispersy_tpu/ops/store.py:577", got, [*want.store, want.n_removed],
         lambda: kernels.store_remove(store, kill),
         lambda: st.store_remove_plain(store, kill),
         4 * n * m + nbytes(kill) + 14 * kept + nbytes(*got), reps)]
+
+
+def check_remove_corners(x: Draw, reps: int) -> list:
+    """K10 on the inputs its stages branch on, untimed, bit-equal to the
+    plain version at N = 2^16 + 3 (not a multiple of a block's rows):
+    ``profiling.REMOVE_CORNERS`` (M = 1, 33 and 48, u32 and u16 aux,
+    half the slots, nothing, everything or only dead slots killed, full
+    rows, rows with holes, no live slot), each also with the columns and the mask one
+    element past an aligned address (off the 16-byte loads)."""
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.profiling import REMOVE_CORNERS, remove_arrays
+    n = (1 << 16) + 3
+    for name, kw in REMOVE_CORNERS.items():
+        kw = dict(kw)
+        cols, kill = remove_arrays(x.rs, n, kw.pop("m"), **kw)
+        store = st.StoreCols(*(x.put(c) for c in cols))
+        kill = x.put(kill)
+        want = st.store_remove_plain(store, kill)
+        if (kw.get("kill") in ("half", "all") and kw.get("fill") != "empty"
+                and not bool(want.n_removed.any())):
+            fail(f"store_remove corner {name} removes nothing")
+        for form, (sc, k) in (("aligned", (store, kill)), ("misaligned", (
+                st.StoreCols(*map(misaligned, store)), misaligned(kill)))):
+            err = max_abs_err(kernels.store_remove(sc, k),
+                              [*want.store, want.n_removed])
+            if err != 0:
+                fail(f"kernel store_remove corner {name} ({form}) disagrees "
+                     f"with its plain version (max abs err {err})")
+    print(f"kernel store_remove corners: mismatches 0 in "
+          f"{len(REMOVE_CORNERS)} cases, aligned and misaligned (untimed)",
+          flush=True)
+    return []
 
 
 def check_store_history(x: Draw, reps: int) -> list:
@@ -1329,7 +1391,7 @@ def check_store_history(x: Draw, reps: int) -> list:
 PERM_KERNEL_CHECKS = (check_timeline, check_timeline_corners,
                       check_store_match,
                       check_store_match_corners, check_remove,
-                      check_store_history)
+                      check_remove_corners, check_store_history)
 
 
 # ---- phase 2, the hardened round's call shapes -------------------------------
@@ -1433,20 +1495,15 @@ HARD_KERNEL_CHECKS = (check_store_probe, check_store_probe_corners)
 
 def push_blast(x: Draw):
     """The chaos round's push blast at 1M: the forward fan-out plus the
-    flooders' junk, six columns (u32 aux, the junk flag), a share
-    ``P_PUSH`` of valid edges, and the admission class of each meta."""
-    from dispersy_tpu_torch.ops import overload as ovo
-    cfg, n = x.cfg, x.cfg.n_peers
-    fm = cfg.faults
-    e = (n * cfg.forward_buffer * cfg.forward_fanout
-         + len(fm.flood_senders) * fm.flood_fanout)
+    flooders' junk, six columns (u32 aux, the junk flag), valid edges,
+    destinations and admission classes drawn with the 1M round's shares
+    (``profiling.push_blast_arrays``)."""
+    from dispersy_tpu_torch.profiling import push_blast_arrays
+    dst, valid, cls = (x.put(a) for a in push_blast_arrays(x.rs, x.cfg))
+    e = dst.shape[0]
     cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u32(e),
             x.flags(0.001, e)]
-    cls = ovo.admission_class(cols[2], cfg.n_meta,
-                              cfg.priorities).to(x.torch.uint8)
-    dst = x.torch.from_numpy(x.rs.integers(-1, n + 1, size=e)
-                             .astype(x.np.int32)).to(x.dev)
-    return e, cols, cls, dst, x.flags(P_PUSH, e)
+    return e, cols, cls, dst, valid
 
 
 def row_sort_key(x: Draw, dst, valid, cls, n, shards):
@@ -1509,13 +1566,16 @@ def k12_row(x: Draw, name, dst, valid, cols, n, q, shards, budget, cls,
 
 def check_chaos_deliver(x: Draw, reps: int) -> list:
     """K12 at the sharded chaos round's 1M shapes, each timed: the capped
-    push blast with admission classes and no receipts (its cap binds at
-    ``P_PUSH``), the exact 2-column request channel with receipts, which
-    must equal K1 on the same inputs, and the exact puncture-request
-    (N·R + T·Rt edges) and puncture (N·R) channels, one column, no
-    receipts."""
+    push blast with admission classes and no receipts (drawn with the
+    round's shares; its cap binds in every bucket, as in the round), the
+    same blast at a budget above every bucket's count and below El (it
+    binds nowhere), the exact 2-column request channel with receipts,
+    which must equal K1 on the same inputs, and the exact
+    puncture-request (N·R + T·Rt edges) and puncture (N·R) channels, one
+    column, no receipts."""
     torch = x.torch
     from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.profiling import ragged_bounds
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
     s, b = cfg.parallel.shards, cfg.parallel.cross_shard_budget
@@ -1523,12 +1583,23 @@ def check_chaos_deliver(x: Draw, reps: int) -> list:
     e, cols, cls, dst, valid = push_blast(x)
     got, want = ragged_case(x, dst, valid, cols, n, q, s, b, cls, False)
     landed, shed = int(got[len(cols)].sum()), int(got[-1].sum())
+    bounds = ragged_bounds(dst, valid, cls, n, s, b)
     print(f"K12 push blast: E {e}, valid {int(valid.sum())}, landed "
-          f"{landed}, shed {shed}", flush=True)
-    if not shed:
-        fail("K12 push blast: the cross-shard cap never bound")
+          f"{landed}, shed {shed}, binding buckets "
+          f"{int(bounds['binding'].sum())} of {s * s}", flush=True)
+    if not bool(bounds["binding"].all()):
+        fail("K12 push blast: the cross-shard cap did not bind in every "
+             "bucket")
     rows = [k12_row(x, "deliver_ragged_push_cls", dst, valid, cols, n, q, s,
                     b, cls, False, got, want, reps)]
+    free = int(bounds["count"].max()) + 1
+    if free >= bounds["el"]:
+        fail(f"K12 push blast: no budget below El {bounds['el']} is free")
+    got, want = ragged_case(x, dst, valid, cols, n, q, s, free, cls, False)
+    if bool(got[-1].any()):
+        fail(f"K12 push blast at budget {free}: the cap bound")
+    rows.append(k12_row(x, "deliver_ragged_push_cls_unbound", dst, valid,
+                        cols, n, q, s, free, cls, False, got, want, reps))
     rq = cfg.request_inbox
     req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
     rdst = corner_dst(x, n, n)
@@ -1689,6 +1760,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     times, phases = [], []
     searched = "intake_checks" in kernels_needed
     off_search = 0
+    alloc0 = torch.cuda.memory_stats()
     for rnd in range(warmup, warmup + rounds):
         if searched:
             off_search += intake_unsorted_rows(state)
@@ -1702,6 +1774,12 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
         grown.append(float(spread(state)) if spread else cov[-1])
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    # The caching allocator's cudaMalloc and cudaFree calls in the timed
+    # rounds (each costs the host a synchronisation) and its retries.
+    alloc1 = torch.cuda.memory_stats()
+    allocator = {k: alloc1.get(key, 0) - alloc0.get(key, 0) for k, key in (
+        ("cuda_malloc", "segment.all.allocated"),
+        ("cuda_free", "segment.all.freed"), ("retries", "num_alloc_retries"))}
 
     # What comes out: every leaf finite and of its schema shape, rings
     # sorted with holes last, staging buffers a valid prefix, the record
@@ -1767,6 +1845,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
            "ms_per_sync_round": med("sync"),
            "rounds_per_s": 1e3 / ms, "round_ms": [t * 1e3 for t in times],
            "phases": phases, "peak_mem_gib": peak / 2 ** 30,
+           "allocator_timed": allocator,
            "coverage": cov, "store_fill": snap["store_fill"],
            "ring_unordered_rows": unordered,
            **({"intake_unsorted_rows": off_search} if searched else {}),

@@ -19,68 +19,20 @@
 // contract).  The block's threads then take the output elements (row, t)
 // in order -- consecutive threads write consecutive outputs, several rows
 // a warp at small widths -- read inv, load every column at that index
-// (only kept entries are read), and write the value or the fill once.
-// The columns are grouped by element size on the host (4, 2, then 1
-// byte; bool is 1), so every load and store has a compile-time width,
-// and the call sites' patterns of column counts -- (4, 0, 2), (3, 1, 2),
-// (4, 0, 1), (3, 1, 1) -- are template parameters: a thread issues every
-// column's loads at UNO = 4 output elements before it stores any (any
-// other mix reads its counts at run time, one element at a time).
-#include "common.cuh"
+// (only kept entries are read), and write the value or the fill once:
+// the gather stage of csrc/compact.cuh, which K10 (csrc/remove.cu)
+// shares.
+#include "compact.cuh"
 
 namespace {
 
-constexpr int MAX_COLS = 8;       // kernels.MAX_COLS
-constexpr int THREADS = 256;
-constexpr int MAX_INV = 8192;     // inv entries a block (int16: 16 KB)
+using dk::CCols;
+constexpr int MAX_COLS = dk::CMP_MAX_COLS;  // kernels.MAX_COLS
+constexpr int THREADS = dk::CMP_THREADS;
+constexpr int MAX_INV = dk::CMP_MAX_INV;
 constexpr int IN_PER_BLOCK = 4096;  // slot entries a block aims for
-constexpr int MAX_W = 32767;      // an entry index fits inv's int16
+constexpr int MAX_W = dk::CMP_MAX_W;
 constexpr int UN = 4;             // loads a thread keeps in flight
-
-// The columns of one element size; fill bits in the low bytes.
-struct Group {
-  const void* src[MAX_COLS];
-  void* dst[MAX_COLS];
-  uint32_t fill[MAX_COLS];
-  int n;
-};
-
-struct CCols {
-  Group g[3];  // 4-, 2- and 1-byte columns
-};
-
-// A group's C columns (C = MAX_COLS and `g.n` at run time when RT) at
-// UNO output elements: entry index i (or -1: the fill), from its offset.
-template <typename T, int C, bool RT, int UNO>
-__device__ __forceinline__ void load_group(const Group& g,
-                                           const int (&i)[UNO],
-                                           const long long (&from)[UNO],
-                                           T (&v)[C ? C : 1][UNO]) {
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (RT && j >= g.n) break;
-#pragma unroll
-    for (int u = 0; u < UNO; ++u)
-      v[j][u] = i[u] >= 0
-                    ? __ldg(static_cast<const T*>(g.src[j]) + from[u])
-                    : static_cast<T>(g.fill[j]);
-  }
-}
-
-template <typename T, int C, bool RT, int UNO>
-__device__ __forceinline__ void store_group(const Group& g, int base,
-                                            int n_out, long long out0,
-                                            const T (&v)[C ? C : 1][UNO]) {
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (RT && j >= g.n) break;
-#pragma unroll
-    for (int u = 0; u < UNO; ++u) {
-      const int o = base + u * THREADS + threadIdx.x;
-      if (o < n_out) static_cast<T*>(g.dst[j])[out0 + o] = v[j][u];
-    }
-  }
-}
 
 // N4, N2, N1: the columns of each size, compile-time for the patterns
 // the call sites use (UNO outputs a thread in flight); -1: any mix, the
@@ -89,11 +41,6 @@ template <bool VEC, int N4, int N2, int N1>
 __global__ void __launch_bounds__(THREADS, 4)
     dk_compact_kernel(const int32_t* slot, long long n, int w, int width,
                       int rows, CCols c) {
-  constexpr bool RT = N4 < 0;
-  constexpr int UNO = RT ? 1 : 4;
-  constexpr int C4 = RT ? MAX_COLS : N4;
-  constexpr int C2 = RT ? MAX_COLS : N2;
-  constexpr int C1 = RT ? MAX_COLS : N1;
   __shared__ int16_t inv[MAX_INV];
   const long long row0 = blockIdx.x * static_cast<long long>(rows);
   const int nr = static_cast<int>(min(static_cast<long long>(rows),
@@ -149,28 +96,8 @@ __global__ void __launch_bounds__(THREADS, 4)
   }
   __syncthreads();
 
-  // Every output element once: gather the kept entry or write the fill;
-  // every load of a step in flight before its stores.
-  const long long out0 = row0 * width;
-  for (int base = 0; base < n_out; base += UNO * THREADS) {
-    int i[UNO];
-    long long from[UNO];
-#pragma unroll
-    for (int u = 0; u < UNO; ++u) {
-      const int o = base + u * THREADS + threadIdx.x;
-      i[u] = o < n_out ? inv[o] : -1;
-      from[u] = (row0 + o / width) * w + i[u];
-    }
-    uint32_t v4[C4 ? C4 : 1][UNO];
-    uint16_t v2[C2 ? C2 : 1][UNO];
-    uint8_t v1[C1 ? C1 : 1][UNO];
-    load_group<uint32_t, C4, RT, UNO>(c.g[0], i, from, v4);
-    load_group<uint16_t, C2, RT, UNO>(c.g[1], i, from, v2);
-    load_group<uint8_t, C1, RT, UNO>(c.g[2], i, from, v1);
-    store_group<uint32_t, C4, RT, UNO>(c.g[0], base, n_out, out0, v4);
-    store_group<uint16_t, C2, RT, UNO>(c.g[1], base, n_out, out0, v2);
-    store_group<uint8_t, C1, RT, UNO>(c.g[2], base, n_out, out0, v1);
-  }
+  // Every output element once: the kept entry or the fill.
+  dk::gather_rows<N4, N2, N1>(inv, row0, nr, w, width, c);
 }
 
 template <int N4, int N2, int N1>
@@ -201,13 +128,8 @@ DK_EXPORT int dk_rank_compact(const int32_t* slot, long long n, long long w,
   if (n == 0) return cudaSuccess;
   // The columns grouped by element size, 4 then 2 then 1 byte.
   CCols c{};
-  for (int j = 0; j < k; ++j) {
-    Group& g = c.g[size[j] == 4 ? 0 : size[j] == 2 ? 1 : 2];
-    g.src[g.n] = src[j];
-    g.dst[g.n] = dst[j];
-    g.fill[g.n] = static_cast<uint32_t>(fill[j]);
-    ++g.n;
-  }
+  for (int j = 0; j < k; ++j)
+    dk::add_col(&c, size[j], src[j], dst[j], static_cast<uint32_t>(fill[j]));
   // Rows a block: about IN_PER_BLOCK slot entries, inv within MAX_INV.
   long long rows = IN_PER_BLOCK / w;
   rows = rows < 1 ? 1 : rows;

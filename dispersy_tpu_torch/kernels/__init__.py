@@ -47,7 +47,7 @@ LAUNCHES = {"deliver": 0, "deliver_cls": 0, "deliver_ragged": 0,
             "store_remove": 0, "store_probe_conflict": 0,
             "store_probe_identity": 0, "store_probe_seq_max": 0}
 _LIBS: dict = {}
-MAX_COLS = 8           # csrc/deliver.cuh, csrc/compact.cu MAX_COLS
+MAX_COLS = 8           # csrc/deliver.cuh MAX_COLS, compact.cuh CMP_MAX_COLS
 DELIVER_MAX_EDGES = 1 << 30  # csrc/deliver.cuh MAX_EDGES (look-back counts)
 STORE_MAX_WIDTH = 256      # csrc/store.cu WMAX (M + B)
 BLOOM_MAX_WORDS = 256      # csrc/bloom.cu MAX_WORDS
@@ -59,9 +59,11 @@ MATCH_MAX_WIDTH = 256      # csrc/match.cu MAX_W (16 B a slot, up to
                            # 32 rows a block in shared memory)
 PROBE_MAX_WIDTH = 256      # csrc/probe.cu MAX_W (24 B a slot, up to 32
                            # rows a block in shared memory)
-COMPACT_MAX_WIDTH = 8192   # csrc/compact.cu MAX_INV (the inverse slot
-                           # map of a block's rows in shared memory)
-COMPACT_MAX_W = 32767      # csrc/compact.cu MAX_W (entry index in int16)
+COMPACT_MAX_WIDTH = 8192   # csrc/compact.cuh CMP_MAX_INV (the inverse
+                           # slot map of a block's rows in shared memory;
+                           # K4's width, K10's M)
+COMPACT_MAX_W = 32767      # csrc/compact.cuh CMP_MAX_W (entry index in
+                           # int16)
 INTAKE_MAX_WIDTH = 256     # csrc/intake.cu MAX_M (8 B a slot in shared
                            # memory)
 
@@ -259,8 +261,8 @@ def deliver_ragged(dst, cols, valid, n_peers: int, inbox_size: int,
     keep = torch.empty(e, dtype=torch.bool, device=dev)
     src, out, nbytes = _ptrs(cols), _ptrs(inbox), _i64s(row_bytes)
     scratch = _scratch("ragged", "dk_deliver_ragged_scratch", dev, e,
-                       n_peers, shards, int(cls is not None), len(cols),
-                       ctypes.addressof(nbytes))
+                       n_peers, shards, budget, int(cls is not None),
+                       len(cols), ctypes.addressof(nbytes))
     err = _fn("ragged", "dk_deliver_ragged", 21)(
         dst.data_ptr(), valid.data_ptr(), cls_ptr, e, n_peers, q, shards,
         budget, int(need_receipts), len(cols), ctypes.addressof(src),
@@ -416,14 +418,16 @@ def store_insert(store, new, new_mask, history: tuple = ()):
 # ---- K10: store remove -----------------------------------------------------
 
 def store_remove(store, kill):
-    """Delete the masked records, survivors compacted left, one warp per
-    row (csrc/remove.cu).  Returns the six [N, M] columns and the i32[N]
-    removed count."""
+    """Delete the masked records, survivors compacted left: each block's
+    slot map computed from gt and kill, inverted in shared memory and
+    gathered as K4 gathers (csrc/remove.cu).  Returns the six [N, M]
+    columns and the i32[N] removed count."""
     n, m = store[0].shape
     _req_cols(store, "store_remove.store", (n, m))
     _req(kill, "store_remove.kill", (torch.bool,), (n, m))
-    if m < 1:
-        raise KernelError("store_remove: M must be >= 1")
+    if not 1 <= m <= COMPACT_MAX_WIDTH:
+        raise KernelError(f"store_remove: M = {m} not in "
+                          f"[1, {COMPACT_MAX_WIDTH}]")
     dev = kill.device
     out = [torch.empty((n, m), dtype=dt, device=dev)
            for dt in _store_dts(store[4].dtype)]

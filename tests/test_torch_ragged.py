@@ -3,8 +3,11 @@ port's plain versions (what a CPU tensor takes) against the JAX package's
 ops on the same numpy inputs, bit for bit (tolerance 0: both are integer
 sorts and scatters).  Every shard count of the chaos round's planes, an
 edge count that the shards do not divide, the class operand on and off,
-an exact and a binding bucket budget, receipts on and off; at budget 0
-the ragged exchange also equals the global delivery."""
+an exact and a binding bucket budget, receipts on and off; K12's capped
+corners (``profiling.ragged_corner``: a hot crossing destination, the
+boundary at a row's first and last edge, budgets binding in some
+buckets only); at budget 0 the ragged exchange also equals the global
+delivery."""
 
 import numpy as np
 import jax
@@ -14,7 +17,7 @@ import torch
 
 from dispersy_tpu.ops import inbox as jinbox
 
-from dispersy_tpu_torch import kernels
+from dispersy_tpu_torch import kernels, profiling
 from dispersy_tpu_torch.exceptions import KernelError
 from dispersy_tpu_torch.ops import inbox
 
@@ -90,6 +93,58 @@ def test_deliver_ragged_equals_jax(s, budget, with_cls, receipts):
     dropped = to_np(got.delivery.n_dropped).sum()
     ok = valid & (dst >= 0) & (dst < n)
     assert landed + dropped + shed == ok.sum()
+
+
+# (corner of ``profiling.ragged_corner``, S, classes): a hot crossing
+# destination (its groups cross deep inside, with classes and without),
+# the boundary at a row's first edge and at the padded last row's last
+# edge, and budgets that bind in some buckets only; E % S != 0 in each.
+CORNER_CASES = [
+    pytest.param("hot_crossing", 4, True, id="hot_crossing-s4"),
+    pytest.param("hot_crossing", 2, False, id="hot_crossing-s2-nocls"),
+    pytest.param("first_edge", 4, True, id="first_edge-s4"),
+    pytest.param("last_edge", 8, True, id="last_edge-s8"),
+    pytest.param("some_buckets", 2, True, id="some_buckets-s2"),
+    pytest.param("budget_el_minus_1", 4, False, id="budget_el_minus_1-s4"),
+]
+
+
+@pytest.mark.parametrize("corner,s,with_cls", CORNER_CASES)
+def test_deliver_ragged_corners_equal_jax(corner, s, with_cls):
+    """K12's capped corners: the port's plain version against the JAX op,
+    and the bucket boundaries the corner means to build
+    (``profiling.ragged_bounds``)."""
+    rs = np.random.default_rng(sum(map(ord, corner)) + s)
+    n, q, e = 64, 3, 4 * 64 + 5
+    assert e % s
+    dst, valid, cls, budget = profiling.ragged_corner(rs, corner, n, e, s)
+    cols = [np.arange(e, dtype=np.uint32), u32(rs, e)]
+    cls = cls if with_cls else None
+    el = -(-e // s)
+    assert 1 <= budget < el
+    want = jax_ragged(dst, valid, cols, cls, n, q, s, budget, True)
+    got = port_ragged(dst, valid, cols, cls, n, q, s, budget, True)
+    same(got.delivery.inbox, want.delivery.inbox)
+    same(got.delivery[1:], want.delivery[1:])
+    same([got.shed], [want.shed])
+    rb = profiling.ragged_bounds(to_t(dst), to_t(valid),
+                                 None if cls is None else to_t(cls), n, s,
+                                 budget)
+    binding = rb["binding"].nonzero().flatten().tolist()
+    h0 = s // 2
+    if corner == "hot_crossing":
+        hot = binding.index(h0)
+        assert rb["m1"][hot] > 0 and rb["group"][hot] > rb["m1"][hot]
+    if corner == "first_edge":
+        assert rb["l"][binding.index(h0)] == 0
+    if corner == "last_edge":
+        at = binding.index((s - 1) * s + h0)
+        assert rb["m2"][at] == 3 and rb["l"][at] == e - 1 - (s - 1) * el
+    if corner in ("some_buckets", "budget_el_minus_1"):
+        assert 0 < len(binding) < s * s
+    # The shed edges are those past each bucket's boundary.
+    assert int(to_np(got.shed).sum()) == int(
+        (rb["count"] - rb["b"]).clamp(min=0).sum())
 
 
 @pytest.mark.parametrize("s", [2, 4, 8])

@@ -22,6 +22,7 @@ from dispersy_tpu.ops import intake as jintake
 from dispersy_tpu.ops import store as jstore
 from dispersy_tpu.ops import timeline as jtl
 
+from dispersy_tpu_torch import profiling
 from dispersy_tpu_torch.config import (META_AUTHORIZE, META_DYNAMIC,
                                        META_UNDO_OTHER, META_UNDO_OWN,
                                        PERM_AUTHORIZE, PERM_PERMIT,
@@ -413,16 +414,40 @@ def ring(rs, n, m, keys=30, members=4, metas=3, aux16=False):
     return cols
 
 
-@pytest.mark.parametrize("n,m,aux16", [(40, 48, False), (9, 5, True)])
-def test_store_remove(n, m, aux16):
+# (N, M, u16 aux, K10 corner): random rings and kills, then
+# ``profiling.remove_arrays``'s corners -- nothing killed, every slot
+# killed, only dead slots killed, M = 1 with half the slots killed.
+REMOVE_CASES = [
+    pytest.param(40, 48, False, None, id="40-48-False"),
+    pytest.param(9, 5, True, None, id="9-5-True"),
+    pytest.param(40, 48, False, dict(kill="none"), id="kill_none"),
+    pytest.param(40, 48, True, dict(kill="all", fill="holes"),
+                 id="kill_all"),
+    pytest.param(40, 48, False, dict(kill="dead", fill="holes"),
+                 id="kill_dead_only"),
+    pytest.param(40, 1, True, dict(kill="half"), id="m1"),
+]
+
+
+@pytest.mark.parametrize("n,m,aux16,corner", REMOVE_CASES)
+def test_store_remove(n, m, aux16, corner):
     rs = np.random.default_rng(n + m + aux16)
-    s = ring(rs, n, m, aux16=aux16)
-    kill = rs.random((n, m)) < 0.3
+    if corner is None:
+        s = ring(rs, n, m, aux16=aux16)
+        kill = rs.random((n, m)) < 0.3
+    else:
+        s, kill = profiling.remove_arrays(rs, n, m, aux16=aux16, **corner)
     want = jitted(jstore.store_remove)(jstc(s), jnp.asarray(kill))
     got = st.store_remove(tstc(s), to_t(kill))
     same(got.store, want.store)
     same([got.n_removed], [want.n_removed])
-    assert int(to_np(got.n_removed).sum()) > 0
+    removed = int(to_np(got.n_removed).sum())
+    live = s[0] != EMPTY
+    assert removed == int((live & kill).sum())
+    if corner is None or corner.get("kill") == "all":
+        assert removed > 0
+    if corner and corner.get("kill") in ("none", "dead"):
+        assert removed == 0
 
 
 @pytest.mark.parametrize("k", [1, 2])
