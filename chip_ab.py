@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Round times of ``chip_smoke.py``'s six main paths, for two checkouts on
+"""Round times of ``chip_smoke.py``'s main paths, for two checkouts on
 one card, in turns.
 
     python3 chip_ab.py OTHER_ROOT [PATH ...]
 
-runs the main paths (or only the named ones, in the order given: say
-``chaos chaos_flat``) of the checkout at ``OTHER_ROOT`` (say, the parent
+runs the six main paths of the first slices (or only the named ones, in
+the order given: say ``chaos chaos_flat``; ``observed`` and ``syncless``
+run only when named, on checkouts that have them) of the checkout at
+``OTHER_ROOT`` (say, the parent
 commit unpacked with ``git archive`` into a git-ignored directory) and of
 this one in the order other, this, this, other -- each run a process of
 its own that imports its checkout's ``chip_smoke.py`` and builds its
@@ -62,6 +64,16 @@ def run_paths(root: str, only: list) -> dict:
                   cs.WARMUP, cs.ROUNDS, one, (64, 2, 1, 64), None),
         "chaos_flat": (chaos_config(n, 0), cs.CHAOS_FLAT_PATH, cs.WARMUP,
                        cs.ROUNDS, one, (64, 2, 1, 64), None)}
+    if "observed" in only or "syncless" in only:
+        from dispersy_tpu_torch.profiling import (observed_config,
+                                                  observed_schedule,
+                                                  syncless_config)
+        mains["observed"] = (observed_config(n), cs.OBSERVED_PATH,
+                             cs.DIET_WARMUP, cs.DIET_ROUNDS,
+                             observed_schedule(n), (64, 2, 1, 64), None)
+        mains["syncless"] = (syncless_config(n), cs.SYNCLESS_PATH,
+                             cs.SYNCLESS_WARMUP, cs.SYNCLESS_ROUNDS, one,
+                             (64, 2, 1, 64), None)
     out = {}
     for path in only or mains:
         cfg, needed, warmup, rounds, creates, record, spread = mains[path]

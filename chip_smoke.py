@@ -8,7 +8,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: the card's name and power limit, torch / CUDA / nvcc
    versions; builds the CUDA kernels from ``dispersy_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, in parallel);
-2. kernels: every kernel of the five paths (K1-K12) on random inputs
+2. kernels: every kernel of the paths (K1-K12) on random inputs
    made with a numpy seed at the shapes the 1M-peer rounds give it -- the
    legacy ring's shapes (K1 at each of its call shapes, and the delivery
    core's corners for K1, K1 with classes and K12; K12's capped corners
@@ -58,7 +58,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version, the bytes bound and, where one
    PyTorch call does the same work, that call (for K1 and K12
    ``torch.sort`` of the packed destination key, for K3 of the packed
-   (gt, member) key);
+   (gt, member) key); K5 on the sync-less diet round's staging is held
+   and timed after that path (phase 4), on the inputs it gave K5;
 3. parity: 4096-peer runs on the card through the kernels and on the CPU
    through the plain versions, equal on every state leaf after every
    round: the legacy ring for 20 rounds, the byte-diet
@@ -69,7 +70,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (its convictions, gossip and stored identities checked after), and
    the chaos round sharded (``profiling.chaos_config(4096, 8, 64)``,
    which must shed at the cross-shard cap) and unsharded (whose
-   overload plane must shed), 20 rounds each;
+   overload plane must shed), 20 rounds each, the observed round
+   (``profiling.observed_config(4096)`` with ``p_symmetric=0.3``, the
+   health sentinels and an 8-record flight recorder, four records
+   tracked) and the diet without sync (``profiling.syncless_config``),
+   24 rounds each;
 4. main paths through the public entry points -- init_state,
    seed_overlay(8), the creates, warm-up and timed rounds -- each with
    every kernel's launch count read after it: the byte-diet round at
@@ -88,7 +93,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    invariant (``ring_unordered_rows``, expected 0); the paths that run
    K5's ``intake_checks`` also count, over the timed rounds, the store
    rows that enter a round off its search path
-   (``intake_unsorted_rows``, expected 0).
+   (``intake_unsorted_rows``, expected 0).  Right after the diet round,
+   the observed round of ``observed_config(1 << 20)`` (the diet round
+   with the telemetry row, its 64-round device ring, the histograms and
+   4 tracked records; 3 + 24 rounds) prints its ms per round and peak
+   memory beside the diet round's, and checks that the row's round word
+   is the round, that the tracked records' coverage words grow and that
+   the snapshot decoded from the row equals the one reduced from the
+   leaves.  Last, the diet round without sync
+   (``syncless_config(1 << 20)``, 3 + 12 rounds, one compaction) runs,
+   and K5 is held against its plain version and timed on the staging
+   buffer and intake batch of its last round (the exact freshness test
+   against the unsorted staging, off K5's search path).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -103,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -140,6 +157,11 @@ CHAOS_PATH = ("deliver", "deliver_ragged", "bloom_build", "bloom_query",
 CHAOS_FLAT_PATH = ("deliver", "deliver_cls", "bloom_build", "bloom_query",
                    "digest_update", "store_insert", "rank_compact_many",
                    "store_stage", "dup_earlier")
+OBSERVED_PATH = DIET_PATH
+SYNCLESS_PATH = ("deliver", "store_insert", "rank_compact_many",
+                 "store_stage", "intake_checks")
+OBS_PARITY_ROUNDS = SYNCLESS_PARITY_ROUNDS = 24
+SYNCLESS_WARMUP, SYNCLESS_ROUNDS = 3, 12   # round 11 compacts
 
 
 def fail(msg: str) -> None:
@@ -1760,6 +1782,8 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     times, phases = [], []
     searched = "intake_checks" in kernels_needed
     off_search = 0
+    observed = cfg.telemetry.enabled
+    row_rounds, tracked_cov = [], []
     alloc0 = torch.cuda.memory_stats()
     for rnd in range(warmup, warmup + rounds):
         if searched:
@@ -1772,6 +1796,13 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
         phases.append(phase_of(cfg, rnd))
         cov.append(float(engine.coverage(state, *record)))
         grown.append(float(spread(state)) if spread else cov[-1])
+        if observed:
+            # Read after the timed window: the row's round word and the
+            # tracked records' coverage words.
+            snap = metrics.snapshot(state, cfg)
+            row_rounds.append(snap["round"])
+            tracked_cov.append([snap[f"trace_cov_{k}"] for k in range(
+                cfg.trace.tracked_slots)])
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     # The caching allocator's cudaMalloc and cudaFree calls in the timed
@@ -1826,6 +1857,9 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     if cfg.malicious_enabled:
         extra = hardened_outcome(state, cfg)
         extra["spread"] = grown
+    if observed:
+        extra = observed_checks(state, cfg, path, warmup, row_rounds,
+                                tracked_cov)
     if chaos:
         extra = chaos_totals(state)
         extra["xshard_shed_timed"] = extra["xshard_shed"] - shed0
@@ -1857,6 +1891,81 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     return out
 
 
+def observed_checks(state, cfg, path: str, warmup: int, row_rounds: list,
+                    tracked_cov: list) -> dict:
+    """The observed path's checks: the row's round word is the round
+    after every timed round, every tracked record's coverage word grew
+    over the timed rounds, and the snapshot decoded from the row has the
+    keys of the one reduced from the leaves and equals it on each but
+    the histograms' (which only the round has): integers exactly,
+    floats -- the occupancy means, which the leaves' path takes in
+    float32 -- to a relative 1e-6."""
+    from dispersy_tpu_torch import metrics
+    want = list(range(warmup + 1, warmup + 1 + len(row_rounds)))
+    if row_rounds != want:
+        fail(f"{path} main path: the row's round words {row_rounds} are "
+             f"not the rounds {want}")
+    first, last = tracked_cov[0], tracked_cov[-1]
+    if not all(b > a for a, b in zip(first, last)):
+        fail(f"{path} main path: tracked coverage did not grow "
+             f"({first} -> {last})")
+    fused = metrics.snapshot(state, cfg)
+    legacy = metrics.legacy_snapshot(state, cfg)
+    if fused.keys() != legacy.keys():
+        fail(f"{path} main path: row snapshot keys "
+             f"{sorted(set(fused) ^ set(legacy))} differ")
+    # The histograms exist only in the round (the leaves' path reports
+    # them empty).
+    shared = [k for k in fused if not k.startswith("hist_")]
+    bad = [k for k in shared if (
+        abs(fused[k] - legacy[k]) > 1e-6 * abs(legacy[k])
+        if isinstance(fused[k], float) and k != "trace_redundancy"
+        else fused[k] != legacy[k])]
+    if bad:
+        fail(f"{path} main path: row snapshot != leaf snapshot on "
+             f"{[(k, fused[k], legacy[k]) for k in bad]}")
+    return {"row_rounds_ok": True, "tracked_cov_first": first,
+            "tracked_cov_last": last, "snapshot_keys_equal": len(shared),
+            "trace_redundancy": fused["trace_redundancy"],
+            "hist_p99": {k: v for k, v in fused.items()
+                         if k.startswith("hist_") and k.endswith("_p99")}}
+
+
+def check_syncless_intake(args, reps: int) -> dict:
+    """K5 on the sync-less diet round's second call of a round: the exact
+    freshness test of the [N, B] intake batch against the [N, S]
+    staging buffer, unsorted in arrival order (captured from the 1M
+    round), bit-equal to the plain version and timed."""
+    import torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import intake
+    from dispersy_tpu_torch.profiling import intake_unsorted_rows
+    sg, sm, member, gt, ok = args
+    n, s = sg.shape
+    b = gt.shape[1]
+    got = kernels.intake_checks(sg, sm, member, gt, ok)
+    want = (intake.in_store_plain(sg, sm, member, gt),
+            intake.dup_earlier_plain(member, gt, ok))
+    fill = float((sg.view(torch.int32) != -1).float().mean())
+    off = intake_unsorted_rows(types.SimpleNamespace(store_gt=sg,
+                                                     store_member=sm))
+    print(f"K5 on the staging: [{n}, {b}] batch against [{n}, {s}] "
+          f"staging, {fill:.4f} of its slots live, {off} rows off the "
+          f"search path, {int(got[0].sum())} hits", flush=True)
+    if not bool(got[0].any()):
+        fail("K5 on the staging: no batch entry is in the staging")
+    row = timed_entry(
+        "intake_checks_staging", "cuda", "dispersy_tpu_torch/csrc/intake.cu",
+        "dispersy_tpu/ops/intake.py:80", list(got), list(want),
+        lambda: kernels.intake_checks(sg, sm, member, gt, ok),
+        lambda: (intake.in_store_plain(sg, sm, member, gt),
+                 intake.dup_earlier_plain(member, gt, ok)),
+        nbytes(sg, sm, member, gt, ok) + 2 * n * b, reps,
+        ops=n * b * (s + b), kernel="intake_checks")
+    row["_path"] = "syncless"
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1869,13 +1978,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.metrics import snapshot
+    from dispersy_tpu_torch.planes import FaultModel
     from dispersy_tpu_torch.profiling import (POST, SEQ_TEXT, bench_config,
                                               chaos_config, hardened_config,
                                               hardened_schedule,
+                                              observed_config,
+                                              observed_schedule,
                                               one_record_schedule,
                                               permissioned_config,
                                               permissioned_schedule,
-                                              slice_config)
+                                              slice_config, syncless_config)
+    from dispersy_tpu_torch.telemetry import flight_records
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1931,10 +2045,35 @@ def main() -> int:
     if not (parity["msgs_shed_priority"] or parity["msgs_shed_rate"]):
         fail(f"chaos parity run (unsharded): nothing shed: {parity}")
     print(f"parity chaos (unsharded): {parity}", flush=True)
+    obs_p = observed_config(PARITY_PEERS)
+    obs_p = obs_p.replace(
+        p_symmetric=0.3, faults=FaultModel(health_checks=True),
+        telemetry=obs_p.telemetry.replace(flight_recorder=8))
+    got = parity_phase(obs_p, SEED, OBS_PARITY_ROUNDS,
+                       observed_schedule(PARITY_PEERS))
+    snap = snapshot(got, obs_p)
+    flights = len(flight_records(got, obs_p))
+    covs = [snap[f"trace_cov_{k}"]
+            for k in range(obs_p.trace.tracked_slots)]
+    if not (min(covs) > 1 and flights and snap["trace_delivered_push"]):
+        fail(f"observed parity run: tracking or the flight recorder idle "
+             f"(coverage {covs}, {flights} flight records)")
+    print(f"parity observed: coverage {covs}, flight records {flights}, "
+          f"redundancy {snap['trace_redundancy']}", flush=True)
+    got = parity_phase(syncless_config(PARITY_PEERS), SEED,
+                       SYNCLESS_PARITY_ROUNDS,
+                       one_record_schedule(PARITY_PEERS))
+    if got.digest.numel() or not snapshot(got, syncless_config(
+            PARITY_PEERS))["msgs_stored"]:
+        fail("syncless parity run: a digest, or nothing stored")
     one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
                            DIET_ROUNDS, one, (64, 2, 1, 64)),
+        "observed": main_phase(observed_config(N_PEERS), "observed",
+                               OBSERVED_PATH, SEED, DIET_WARMUP,
+                               DIET_ROUNDS, observed_schedule(N_PEERS),
+                               (64, 2, 1, 64)),
         "legacy": main_phase(legacy, "legacy", LEGACY_PATH, SEED, WARMUP,
                              ROUNDS, one, (64, 2, 1, 64)),
         # The post of peer 64 (meta 0, public): meta 1 is protected here.
@@ -1955,6 +2094,35 @@ def main() -> int:
                             ROUNDS, one, (64, 2, 1, 64)),
         "chaos_flat": main_phase(chaos_flat, "chaos_flat", CHAOS_FLAT_PATH,
                                  SEED, WARMUP, ROUNDS, one, (64, 2, 1, 64))}
+    d, o = mains["diet"], mains["observed"]
+    print(f"observed vs diet (one run, {card}): ms per round "
+          f"{o['ms_per_round']:.2f} vs {d['ms_per_round']:.2f} "
+          f"(+{o['ms_per_round'] - d['ms_per_round']:.2f}), quiet "
+          f"{o['ms_per_quiet_round']:.2f} vs {d['ms_per_quiet_round']:.2f}, "
+          f"sync {o['ms_per_sync_round']:.2f} vs "
+          f"{d['ms_per_sync_round']:.2f}; peak memory "
+          f"{o['peak_mem_gib']:.3f} vs {d['peak_mem_gib']:.3f} GiB",
+          flush=True)
+    # The diet without sync, its K5 inputs of each round's staging call
+    # kept (the last one checked and timed after the path).
+    from dispersy_tpu_torch.ops import intake as intake_ops
+    syncless, captured = syncless_config(N_PEERS), {}
+    real_checks = intake_ops.intake_checks
+
+    def spy(sg, *rest):
+        if sg.shape[1] == syncless.store.staging:
+            captured["args"] = (sg, *rest)
+        return real_checks(sg, *rest)
+    intake_ops.intake_checks = spy
+    try:
+        mains["syncless"] = main_phase(
+            syncless, "syncless", SYNCLESS_PATH, SEED, SYNCLESS_WARMUP,
+            SYNCLESS_ROUNDS, one, (64, 2, 1, 64))
+    finally:
+        intake_ops.intake_checks = real_checks
+    if "args" not in captured:
+        fail("syncless main path: K5 never ran against the staging")
+    rows.append(check_syncless_intake(captured.pop("args"), REPS))
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

@@ -1,11 +1,11 @@
 """dispersy_tpu_torch: the PyTorch / CUDA port of ``dispersy_tpu``.
 
-The legacy-store ``engine.step`` round runs here with every optional
-plane at its defaults (``engine.check_slice`` names what is off the
-slice).  Entry points run on ``"cuda"`` unless the caller passes
-``device="cpu"``; a CPU tensor takes each hot op's plain PyTorch version,
-a CUDA tensor its hand-written kernel (``kernels``, ``csrc``).  Nothing
-here imports JAX or the JAX package.
+The ``engine.step`` round runs here on the legacy ring and the byte-diet
+store, with the planes and protocol features ``engine.check_slice``
+does not name as off the slice.  Entry points run on ``"cuda"`` unless
+the caller passes ``device="cpu"``; a CPU tensor takes each hot op's
+plain PyTorch version, a CUDA tensor its hand-written kernel
+(``kernels``, ``csrc``).  Nothing here imports JAX or the JAX package.
 """
 
 from dispersy_tpu_torch.config import CommunityConfig

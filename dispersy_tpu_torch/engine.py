@@ -22,15 +22,22 @@ strictly in order; and the chaos planes: the fault model (the
 Gilbert–Elliott channel, partitions, duplication, corruption, flooders,
 the health sentinels), the recovery pass, overload's token buckets and
 priority admission, and the parallel plane (the shard-local ragged
-exchange with its capped push buckets, :func:`_deliver`).  Any other
-config raises ``NotImplementedError`` before a round starts.  The store is the legacy
-ring (merged every round) or the byte-diet store (``store.staging > 0``,
-:mod:`storediet`): arrivals land in a staging buffer, the Bloom claim
-is a persistent digest salted with an epoch, and the sync exchange and
-compaction run on sync rounds only -- for one cohort of peers at a time
-under ``store.cohorts > 1``.  The JAX package chooses a round's phase
-with a ``lax.cond`` on the round counter; here :func:`step` reads the
-round index to the host once per round instead.  The Timeline's retro
+exchange with its capped push buckets, :func:`_deliver`); the telemetry
+plane (the packed per-round row, its device ring, the histograms and the
+flight recorder) and the dissemination-tracing plane (per tracked record
+and peer, the first arrival, its channel and the duplicates; coverage
+latches); symmetric-NAT members (``p_symmetric``).  Any other config
+raises ``NotImplementedError`` before a round starts.  The store is the
+legacy ring (merged every round) or the byte-diet store (``store.staging
+> 0``, :mod:`storediet`): arrivals land in a staging buffer, and with the
+sync exchange the Bloom claim is a persistent digest salted with an
+epoch, and the sync exchange and compaction run on sync rounds only --
+for one cohort of peers at a time under ``store.cohorts > 1``; without
+it there is no digest, freshness is an exact test against ring and
+staging, and the ring still merges on the cadence's sync rounds.  The
+JAX package chooses a round's phase with a ``lax.cond`` on the round
+counter; here :func:`step` reads the round index to the host once per
+round instead.  The Timeline's retro
 pass is the JAX package's other ``lax.cond``: here its trigger is read
 to the host, once per round, and so is the recovery pass's (a store
 repair or a quarantine wipe anywhere).  The hot ops go through
@@ -47,8 +54,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from dispersy_tpu_torch import storediet as sdiet
+from dispersy_tpu_torch import telemetry as tlm
+from dispersy_tpu_torch import traceplane as trp
 from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
                                        EMPTY_U32, IDENTITY_PRIORITY,
                                        INTRO_REQUEST_BASE_BYTES,
@@ -73,10 +83,11 @@ from dispersy_tpu_torch.ops import overload as ovl
 from dispersy_tpu_torch.ops import recovery as rcv
 from dispersy_tpu_torch.ops import rng
 from dispersy_tpu_torch.ops import store as st
+from dispersy_tpu_torch.ops import telemetry as tele
 from dispersy_tpu_torch.ops import timeline as tl
+from dispersy_tpu_torch.ops import trace as trc
 from dispersy_tpu_torch.ops.hashing import record_hash
-from dispersy_tpu_torch.planes import (NUM_HEALTH_BITS, TelemetryConfig,
-                                       TraceConfig)
+from dispersy_tpu_torch.planes import NUM_HEALTH_BITS
 from dispersy_tpu_torch.state import FLAG_UNDONE, NEVER, PeerState
 from dispersy_tpu_torch.u32 import (MASK, bits, cast, narrow, narrow16,
                                     unbits, wide, zeros)
@@ -110,16 +121,10 @@ _RECOVERY_COUNTERS = ("recov_soft", "recov_backoff", "recov_quarantine")
 
 def check_slice(cfg: CommunityConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
-    is off the ported slice (the legacy or byte-diet store, every plane
-    and protocol feature flag at its default but the Timeline, LastSync
-    history, meta priorities and DESC sync, the identity gate,
-    sequence-numbered metas and double-sign conviction with its gossip,
-    and the fault, recovery, overload and parallel planes; public
-    NAT)."""
+    is off the ported slice: several communities, the delay pen and the
+    four request channels that ride it, double-signed metas and direct
+    metas."""
     off = [
-        ("sync_enabled", cfg.store_diet and not cfg.sync_enabled),
-        ("telemetry", cfg.telemetry != TelemetryConfig()),
-        ("trace", cfg.trace != TraceConfig()),
         ("communities", bool(cfg.communities)),
         ("delay_inbox", cfg.delay_inbox > 0),
         ("proof_requests", cfg.proof_requests),
@@ -128,18 +133,13 @@ def check_slice(cfg: CommunityConfig) -> None:
         ("identity_requests", cfg.identity_requests),
         ("double_meta_mask", bool(cfg.double_meta_mask)),
         ("direct_meta_mask", bool(cfg.direct_meta_mask)),
-        ("p_symmetric", cfg.p_symmetric > 0.0),
     ]
     for name, is_off in off:
         if is_off:
             raise NotImplementedError(
-                f"CommunityConfig.{name} is off the ported slice (the "
-                "legacy-store and byte-diet rounds with every optional "
-                "plane and feature flag at its default but the Timeline, "
-                "LastSync history, meta priorities, DESC sync, the identity "
-                "gate, sequence numbers, double-sign conviction and the "
-                "fault, recovery, overload and parallel planes; the diet "
-                "needs sync_enabled)")
+                f"CommunityConfig.{name} is off the ported slice (one "
+                "community; no delay pen or request channels, "
+                "double-signed or direct metas)")
 
 
 class _EffFaults(NamedTuple):
@@ -610,6 +610,108 @@ def _stats_out(state: PeerState, acc: dict):
     return state.stats.replace(**upd)
 
 
+def counter_matrix(stats, n: int) -> torch.Tensor:
+    """u32[N, len(U64_COUNTERS)]: every snapshot counter as a column, in
+    ``telemetry.U64_COUNTERS`` order; a compiled-out (zero-width) leaf
+    reads as a zero column."""
+    return narrow(torch.stack(
+        [wide(c) if c.shape[0] == n else torch.zeros(
+            n, dtype=torch.int64, device=c.device)
+         for c in (getattr(stats, nm) for nm in tlm.U64_COUNTERS)], dim=1))
+
+
+def _telemetry_row(cfg: CommunityConfig, *, rnd, new_time, members, stats,
+                   stc, health, store_cnt, cand_cnt, hists, bucket=None,
+                   trace_cov=None, trace_latch=None) -> torch.Tensor:
+    """The packed per-round telemetry row, u32[row_width], laid out by
+    ``telemetry.row_schema``: counter totals as exact u64 (lo, hi) pairs,
+    occupancy numerators, per-bit health counts, the trace, overload and
+    recovery words with their planes, histogram buckets.  Reduced on the
+    state's device with no host read: every u32 counter column in one
+    matrix and two reductions, every field a view of a few results."""
+    n, dev = cfg.n_peers, members.device
+    n64 = torch.int64
+    # The counters as the rows of one [C, N] matrix of int32 bit views,
+    # in the order of `names`; a compiled-out (zero-width) leaf totals 0.
+    names, rows = [], []
+
+    def add(prefix_names, leaf):
+        if leaf.shape[0] == n:
+            names.extend(prefix_names)
+            rows.append(leaf.view(torch.int32).reshape(n, -1).t())
+    for nm in tlm.U64_COUNTERS:
+        add([nm], getattr(stats, nm))
+    add([f"accepted_by_meta_{i}" for i in range(cfg.n_meta + 1)],
+        stats.accepted_by_meta)
+    if cfg.trace.enabled:
+        add([f"trace_delivered_{nm}" for nm in trp.CHANNEL_NAMES],
+            stats.trace_delivered)
+        add([f"trace_dup_{nm}" for nm in trp.CHANNEL_NAMES], stats.trace_dup)
+    if cfg.overload.enabled:
+        for nm in ("msgs_shed_rate", "msgs_shed_priority"):
+            add([nm], getattr(stats, nm))
+    if cfg.recovery.enabled:
+        for nm in ("recov_soft", "recov_backoff", "recov_quarantine"):
+            add([nm], getattr(stats, nm))
+        add([f"recov_cleared_{nm}" for nm in tlm.HEALTH_NAMES],
+            stats.recov_cleared)
+    tot = tele.row_totals_u64(torch.cat(rows, dim=0))
+    # Scalar numerators, each < 2^32, beside them.
+    h = wide(health)
+    hb = torch.arange(len(tlm.HEALTH_NAMES), device=dev)
+    bit_cnt = ((h[:, None] >> hb[None, :]) & 1).sum(dim=0)
+    small = torch.cat([torch.stack([
+        (rnd + 1) & MASK, new_time.view(torch.int32).to(n64) & MASK,
+        members.sum(), killed_mask(stc.meta).sum(),
+        store_cnt.sum(), torch.where(members, cand_cnt, 0).sum(),
+        ((bit_cnt > 0).to(n64) << hb).sum(), (h != 0).sum()]), bit_cnt])
+    pairs = torch.stack([tot & MASK, tot >> 32], dim=1)    # [C, 2]
+    vals = {nm: pairs[i] for i, nm in enumerate(names)}
+    zero2 = torch.zeros(2, dtype=n64, device=dev)
+    for nm in tlm.U64_COUNTERS:
+        vals.setdefault(nm, zero2)
+    for i, nm in enumerate(("round", "sim_time", "alive_members", "killed")):
+        vals[nm] = small[i:i + 1]
+    live = torch.stack([small[4] & MASK, small[4] >> 32, small[5] & MASK,
+                        small[5] >> 32])
+    vals["store_live"], vals["cand_live"] = live[:2], live[2:]
+    vals["health_or"], vals["health_flagged"] = small[6:7], small[7:8]
+    for b, nm in enumerate(tlm.HEALTH_NAMES):
+        vals[f"health_{nm}"] = small[8 + b:9 + b]
+    if cfg.trace.enabled:
+        t = cfg.trace.tracked_slots
+        cov, lat = wide(trace_cov), wide(trace_latch)
+        for k in range(t):
+            vals[f"trace_cov_{k}"] = cov[k:k + 1]
+            for i, pct in enumerate(trp.LATCH_PCTS):
+                vals[f"trace_r{pct}_{k}"] = lat[k, i:i + 1]
+        # The redundancy ratio in float32, operation for operation as
+        # traceplane.redundancy_f32 (channel by channel, lo + hi * 2^32).
+        words = torch.stack([torch.stack([vals[f"trace_{kind}_{nm}"]
+                                          for nm in trp.CHANNEL_NAMES])
+                             for kind in ("delivered", "dup")]).to(
+                                 torch.float32)           # [2, 4, (lo, hi)]
+        per = words[..., 0] + words[..., 1] * 4294967296.0
+        # Summed channel by channel in order (0 + x is x).
+        tot_f = per[:, 0]
+        for c in range(1, trp.NUM_CHANNELS):
+            tot_f = tot_f + per[:, c]
+        useful_f, dup_f = tot_f[0], tot_f[1]
+        ratio = torch.where(useful_f > 0, (useful_f + dup_f) / useful_f,
+                            torch.zeros_like(useful_f))
+        vals["trace_redundancy"] = wide(ratio.view(torch.int32)).reshape(1)
+    if cfg.overload.enabled:
+        vals["bucket_exhausted"] = (bucket == 0).sum().reshape(1)
+    if cfg.telemetry.histograms:
+        hb_n = cfg.telemetry.hist_buckets
+        for name, kind, cap in tlm.hist_specs(cfg):
+            val, mask = hists[name]
+            vals[f"hist_{name}"] = wide(
+                tele.hist_linear(val, mask, cap, hb_n) if kind == "linear"
+                else tele.hist_log2(val, mask, hb_n))
+    return narrow(torch.cat([vals[nm] for nm, _ in tlm.row_schema(cfg)]))
+
+
 def step(state: PeerState, cfg: CommunityConfig,
          phase: str | None = None) -> PeerState:
     """Advance every peer one walker interval (~5 simulated seconds).
@@ -684,6 +786,15 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         acc.update({name: z64.clone() for name in _RECOVERY_COUNTERS})
         acc["recov_cleared"] = torch.zeros((n, NUM_HEALTH_BITS),
                                            dtype=torch.int64, device=dev)
+    # The tracing plane: lineage columns (int64 carriers for the u32
+    # ones) and the per-channel useful / duplicate deliveries.
+    trace_on = cfg.trace.enabled
+    tr_first, tr_chan = wide(state.trace_first), state.trace_chan
+    tr_dups, tr_latch = wide(state.trace_dups), state.trace_latch
+    if trace_on:
+        for name in ("trace_delivered", "trace_dup"):
+            acc[name] = torch.zeros((n, trp.NUM_CHANNELS),
+                                    dtype=torch.int64, device=dev)
     bucket_new = state.bucket
     # Each peer's Gilbert–Elliott channel moves once a round; this
     # round's loss draws condition on the new state.
@@ -724,7 +835,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     # session bumped.  Trackers never churn.
     tab, stc = _tab(state, cfg), _store(state)
     sta = _staging(state) if diet else None
-    dig = state.digest if diet else None
+    # The digest exists only with the sync exchange.
+    dig = state.digest if diet and cfg.sync_enabled else None
     epoch = state.epoch
     fwd = (state.fwd_gt, state.fwd_member, state.fwd_meta,
            state.fwd_payload, state.fwd_aux)
@@ -744,7 +856,13 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             reborn, tab, stc, fwd, auth, mal, global_time, session)
         if diet:
             sta = _wipe_store_cols(m1, sta)
+        if dig is not None:
             dig = _fill(m1, dig, 0)
+        if trace_on:
+            # Lineage is the disk's arrival history: it wipes too.
+            tr_first = torch.where(m1, 0, tr_first)
+            tr_chan = torch.where(m1, 0, tr_chan)
+            tr_dups = torch.where(m1, 0, tr_dups)
         if stagger:
             # The epoch leaf wipes with the store and is re-derived from
             # the round counter and the peer's cohort.
@@ -764,6 +882,20 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     alive = state.alive
     act = alive & loaded            # participating this round
     arrivals = torch.zeros(n, dtype=torch.bool, device=dev)
+    nat_sym = sym_of = None
+    if cfg.p_symmetric > 0.0:
+        # Symmetric-NAT members: a property of the identity's router,
+        # drawn once from the round-0 stream (so it survives churn);
+        # trackers are public.
+        nat_sym = ((rng.rand_uniform(seed, torch.zeros_like(rnd), idx,
+                                     rng.P_NAT)
+                    < _f32(cfg.p_symmetric, dev)) & (idx >= t))
+
+        def sym_of(peer):
+            """The NAT type of each entry of a peer-index array (NO_PEER
+            reads as public)."""
+            p_ = peer.to(torch.int64)
+            return nat_sym[p_.clamp(0, n - 1)] & (p_ >= 0)
     # Hard-kill state: a peer whose (post-churn) store holds the founder's
     # destroy record walks, authors and takes in nothing, and serves and
     # pushes only the destroy record.
@@ -1070,7 +1202,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         ttab = cand.CandTable(*(col[:t] for col in tab))
         intro_ring = cand.sample_introductions(
             ttab, now, cfg, seed, rnd, tidx, exclude=tq_src_i,
-            salt_base=_TRACKER_INTRO_SALT)                   # [T, Rt]
+            salt_base=_TRACKER_INTRO_SALT,
+            req_sym=None if nat_sym is None else sym_of(tq_src_i),
+            slot_sym=None if nat_sym is None else sym_of(ttab.peer))
         # Introduce requester s to another requester of this round's
         # inbox; fall back to the ring pick when that slot is empty.
         s_ix = torch.arange(rt, dtype=torch.int64, device=dev)[None, :]
@@ -1080,6 +1214,12 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         intro_inbox = torch.gather(tq_src_i, 1, jj)
         intro_inbox = torch.where(intro_inbox == tq_src_i, NO_PEER,
                                   intro_inbox)
+        if nat_sym is not None:
+            # Never pair two symmetric-NAT requesters (the filtered ring
+            # pick stands in).
+            intro_inbox = torch.where(
+                sym_of(tq_src_i) & sym_of(intro_inbox), NO_PEER,
+                intro_inbox)
         intro_t = torch.where(intro_inbox != NO_PEER, intro_inbox,
                               intro_ring)
         global_time = torch.cat([
@@ -1094,8 +1234,10 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     else:
         rt = 0
 
-    intro = cand.sample_introductions(tab, now, cfg, seed, rnd, idx,
-                                      exclude=rq_src_i)      # [N, R]
+    intro = cand.sample_introductions(
+        tab, now, cfg, seed, rnd, idx, exclude=rq_src_i,
+        req_sym=None if nat_sym is None else sym_of(rq_src_i),
+        slot_sym=None if nat_sym is None else sym_of(tab.peer))  # [N, R]
     bup = bup + (rq_ok & (intro != NO_PEER)).sum(dim=1) \
         * PUNCTURE_REQUEST_BYTES
 
@@ -1144,6 +1286,10 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         pu_ok_send = pu_ok_send & ~flt.partition_blocked(
             idx[:, None].expand(pq_target.shape), bits(pq_target),
             fm.partitions)
+    if nat_sym is not None:
+        # Two symmetric NATs cannot hole-punch: the puncture never lands.
+        pu_ok_send = pu_ok_send & ~(nat_sym[:, None]
+                                    & sym_of(bits(pq_target)))
     punc, _ = _deliver(
         cfg, bits(pq_target).reshape(-1),
         [_bcast_edges(idx_u32[:, None], n, 1, p)],
@@ -1194,6 +1340,14 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     tab = cand.remove(tab, target, failed)
     acc["walk_success"] += walked_ok & got_resp
     acc["walk_fail"] += failed
+    walk_streak = state.walk_streak
+    if cfg.telemetry.histograms:
+        # Consecutive successful walks: +1 on a success, reset on a
+        # failure, kept on a round without a walk (stats-like: it
+        # survives churn).
+        walk_streak = narrow(torch.where(
+            walked_ok & got_resp, wide(walk_streak) + 1,
+            torch.where(failed, 0, wide(walk_streak))))
 
     # ---- phase 2b/5: sync responder ------------------------------------
     # Per request slot the responder fills an outbox of up to
@@ -1377,11 +1531,19 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         # diet "stored" is a query of the epoch digest, so quiet rounds
         # read no ring bytes; a Bloom false positive drops a fresh record
         # as a duplicate, exactly as in the JAX package.
-        if diet:
+        if dig is not None:
             in_h = narrow(record_hash(in_member, in_gt, in_meta, in_payload))
             in_store = bloom.bloom_query(dig, in_h, cfg.bloom_bits,
                                          cfg.bloom_hashes, salt=ep)
             dup_in_batch = intake.dup_earlier(in_member, in_gt, in_ok)
+        elif diet:
+            # The diet without sync has no digest: the exact test against
+            # the ring and the staging buffer (unsorted, in arrival order).
+            in_ring, dup_in_batch = intake.intake_checks(
+                stc.gt, stc.member, in_member, in_gt, in_ok)
+            in_sta, _ = intake.intake_checks(sta.gt, sta.member, in_member,
+                                             in_gt, in_ok)
+            in_store = in_ring | in_sta
         else:
             in_store, dup_in_batch = intake.intake_checks(
                 stc.gt, stc.member, in_member, in_gt, in_ok)
@@ -1420,7 +1582,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             sta = stg.staging
             acc["msgs_dropped"] += ((accept & ~fresh).sum(dim=1)
                                     + stg.n_dropped)
-            if stagger or not compact_now:
+            if dig is not None and (stagger or not compact_now):
                 # OR the landed arrivals into the digest so the next claim
                 # and freshness test cover them (a cohorts=1 compaction
                 # rebuilds it instead; under staggering the active
@@ -1436,6 +1598,28 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             acc["msgs_dropped"] += (ins.n_dropped.to(torch.int64)
                                     + ins.n_evicted)
         global_time = _fold_gt(global_time, wide(in_gt), accept, rng_range)
+        if trace_on:
+            with record_function("trace_lineage"):
+                # The lineage fold of every slot.  The channel is static
+                # per batch segment (sync pulls, pushes, then their
+                # duplicates); an arrival lands where it took a staging
+                # slot under the diet and where it was accepted fresh on
+                # the legacy ring.
+                landed = stg.landed if diet else fresh
+                chan_code = torch.cat([
+                    torch.full((c.shape[1],), code, dtype=torch.uint8,
+                               device=dev)
+                    for c, code in ((sy_gt, trp.CH_WALK_SYNC),
+                                    (ph_gt, trp.CH_PUSH))] * (n_seg // 2))
+                match = ((bits(in_member)[:, None, :]
+                          == bits(state.trace_member)[None, :, None])
+                         & (bits(in_gt)[:, None, :]
+                            == bits(state.trace_gt)[None, :, None]))
+                tr_first, tr_chan, tr_dups, ubc, dbc = trc.slot_lineage(
+                    tr_first, tr_chan, tr_dups, match, landed, accept,
+                    chan_code, rnd + 1)
+                acc["trace_delivered"] += ubc
+                acc["trace_dup"] += dbc
         if tline:
             # This batch's accepted undos mark their targets in the
             # post-insert store (an undo and its target landing together
@@ -1540,7 +1724,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         sta = st.empty_records(sta.gt.shape, sta.aux.dtype, dev)
         acc["msgs_stored"] += ins.n_inserted
         acc["msgs_dropped"] += ins.n_dropped.to(torch.int64) + ins.n_evicted
-        dig = _digest_rebuild(stc, cfg, sdiet.epoch_of(cfg, rnd_h) + 1, dev)
+        if dig is not None:
+            dig = _digest_rebuild(stc, cfg, sdiet.epoch_of(cfg, rnd_h) + 1,
+                                  dev)
 
     # ---- wrap up --------------------------------------------------------
     if mal_on:
@@ -1572,23 +1758,99 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
               | torch.where(drop_delta >= fm.health_drop_limit,
                             HEALTH_INBOX_DROP, 0))
         if cfg.sync_enabled:
-            fill = flt.popcount_u32(dig if diet else my_bloom).sum(dim=1)
+            fill = flt.popcount_rows(dig if diet else my_bloom)
             hb = hb | torch.where(fill * 8 >= cfg.bloom_bits * 7,
                                   HEALTH_BLOOM_SAT, 0)
         health_pre = wide(health)
         health = health_pre | hb
     if rc.enabled:
         (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
-         backoff, repair_round, quar_until) = _recovery_pass(
+         backoff, repair_round, quar_until, esc) = _recovery_pass(
             cfg, acc, seed, rnd, idx, health_pre, hb, tab, stc, sta, dig,
             fwd, auth, mal, global_time, session, backoff, repair_round,
             quar_until)
+        if trace_on:
+            # A quarantine is a wiped-disk rebirth: lineage wipes too.
+            em = esc[:, None]
+            tr_first = torch.where(em, 0, tr_first)
+            tr_chan = torch.where(em, 0, tr_chan)
+            tr_dups = torch.where(em, 0, tr_dups)
     acc["bytes_up"] += bup
     acc["bytes_down"] += bdown
+    stats = _stats_out(state, acc)
+    new_time = now + _f32(cfg.walk_interval, dev)
+    members = alive & ~state.is_tracker
+    tr_cov = None
+    if trace_on:
+        with record_function("trace_coverage"):
+            # Coverage and its latches, after the recovery wipes and before
+            # the row packs them.
+            tr_cov = trc.coverage_counts(tr_first, members)
+            tr_latch = trc.latch_update(
+                tr_latch, tr_cov, bits(state.trace_member) != -1,
+                members.sum(), narrow(rnd + 1))
+    tele_row, tele_ring = state.tele_row, state.tele_ring
+    fr_ring, fr_pos = state.fr_ring, state.fr_pos
+    if cfg.telemetry.enabled:
+        with record_function("telemetry_row"):
+            tc = cfg.telemetry
+            store_cnt = st.count_valid(stc.gt).to(torch.int64)
+            if diet:
+                # The logical store is ring and staging.
+                store_cnt = store_cnt + st.count_valid(sta.gt)
+            cand_cnt = (tab.peer != NO_PEER).sum(dim=1)
+            # This round's dropped packets and records (u32, wrapping).
+            drop_delta = (acc["requests_dropped"] + acc["msgs_dropped"]) & MASK
+            hists = None
+            if tc.histograms:
+                ones = torch.ones(n, dtype=torch.bool, device=dev)
+                if cfg.sync_enabled:
+                    bloom_cnt = flt.popcount_rows(dig if diet else my_bloom)
+                    bloom_mask = ones
+                else:
+                    bloom_cnt, bloom_mask = z64, ~ones
+                hists = {"store_fill": (store_cnt, ones),
+                         "cand_fill": (cand_cnt, members),
+                         "req_inbox": (n_rq, ~state.is_tracker),
+                         "round_drops": (drop_delta, ones),
+                         "bloom_fill": (bloom_cnt, bloom_mask),
+                         "walk_streak": (walk_streak, members)}
+            tele_row = _telemetry_row(
+                cfg, rnd=rnd, new_time=new_time, members=members, stats=stats,
+                stc=stc, health=health, store_cnt=store_cnt, cand_cnt=cand_cnt,
+                hists=hists, bucket=bucket_new, trace_cov=tr_cov,
+                trace_latch=tr_latch)
+            if tc.history:
+                # Round r + 1's row lands at slot r % history.
+                tele_ring = tele_ring.clone()
+                tele_ring.view(torch.int32).index_copy_(
+                    0, (rnd % tc.history).reshape(1),
+                    tele_row.view(torch.int32)[None])
+            if tc.flight_recorder:
+                # The first flight_per_round peers whose sentinel newly
+                # latched this round, in index order.
+                newly = hb & ~health_pre
+                is_new = newly != 0
+                fpr = tc.flight_per_round
+                frank = torch.cumsum(is_new.to(torch.int64), dim=0) - 1
+                frslot = torch.where(is_new & (frank < fpr), frank, fpr)
+                cols = (idx, (rnd + 1).expand(n), newly, wide(health),
+                        wide(stats.requests_dropped), wide(stats.msgs_dropped),
+                        drop_delta, store_cnt)
+                recs = torch.stack([
+                    wide(st.rank_compact(narrow(c)[None], frslot[None], fpr,
+                                         EMPTY_U32 if i == 0 else 0)[0])
+                    for i, c in enumerate(cols)], dim=1)
+                fr_ring, fr_pos = tele.flight_append(
+                    state.fr_ring, state.fr_pos, recs, recs[:, 0] != EMPTY_U32)
     diet_leaves = {} if not diet else {
         "sta_gt": sta.gt, "sta_member": sta.member, "sta_meta": sta.meta,
         "sta_payload": sta.payload, "sta_aux": sta.aux,
-        "sta_flags": sta.flags, "digest": dig, "epoch": epoch}
+        "sta_flags": sta.flags, "epoch": epoch,
+        **({} if dig is None else {"digest": dig})}
+    trace_leaves = {} if not trace_on else {
+        "trace_first": narrow(tr_first), "trace_chan": tr_chan,
+        "trace_dups": narrow(tr_dups), "trace_latch": tr_latch}
     return state.replace(
         loaded=loaded, session=narrow(session),
         global_time=narrow(global_time),
@@ -1605,9 +1867,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
         auth_rev=auth.rev, auth_issuer=auth.issuer, mal_member=mal,
-        stats=_stats_out(state, acc),
-        time=now + _f32(cfg.walk_interval, dev),
-        round_index=narrow(rnd + 1),
+        walk_streak=walk_streak, tele_row=tele_row, tele_ring=tele_ring,
+        fr_ring=fr_ring, fr_pos=fr_pos, **trace_leaves,
+        stats=stats, time=new_time, round_index=narrow(rnd + 1),
     )
 
 
@@ -1625,7 +1887,7 @@ def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
     the peer from their tables.  The store-wide repairs run only when
     some peer needs one (the JAX package's ``lax.cond``; one host read
     here, which also skips whichever of the two has no peer).  Returns
-    the updated leaves."""
+    the updated leaves and the escalation mask."""
     rc = cfg.recovery
     n, dev = cfg.n_peers, idx.device
     rpost = (rnd + 1) & MASK
@@ -1651,6 +1913,7 @@ def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
             # The staging buffer and the digest are the store's write
             # buffer and claim view: they wipe with the ring.
             sta = _wipe_store_cols(em, sta)
+        if dig is not None:
             dig = _fill(em, dig, 0)
     if rc.soft_repair:
         rep_inbox = rep & ((prev & HEALTH_INBOX_DROP) != 0)
@@ -1686,7 +1949,7 @@ def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
     acc["recov_cleared"] += torch.stack(
         [(cleared >> b) & 1 for b in range(NUM_HEALTH_BITS)], dim=1)
     return (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
-            backoff, narrow(rr), narrow(quar))
+            backoff, narrow(rr), narrow(quar), esc)
 
 
 def _identity_gate(cfg: CommunityConfig, stc: st.StoreCols,
@@ -1808,8 +2071,8 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     ins = st.store_insert(_store(state), new, author_mask[:, None],
                           history=cfg.history)
     stc = ins.store
-    diet_leaves = {}
-    if cfg.store_diet:
+    leaves = {}
+    if cfg.store_diet and cfg.sync_enabled:
         # The record goes straight into the ring, and the digest learns
         # its probe bits under the salt of the round that claims next:
         # the author's own cohort's epoch under staggering.
@@ -1817,7 +2080,7 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
             wide(state.round_index) // cfg.store.compact_every))
         new_h = narrow(record_hash(new.member, new.gt, new.meta,
                                    new.payload))
-        diet_leaves["digest"] = bloom.digest_update(
+        leaves["digest"] = bloom.digest_update(
             state.digest, new_h, author_mask[:, None], cfg.bloom_bits,
             cfg.bloom_hashes, salt=salt)
     if cfg.timeline_enabled and meta in (META_AUTHORIZE, META_REVOKE):
@@ -1857,10 +2120,29 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     abm = wide(state.stats.accepted_by_meta)
     abm[:, min(meta, cfg.n_meta)] += author_mask.to(torch.int64)
     stats["msgs_stored"] = ins.n_inserted.to(torch.int64)
+    stat_leaves = {"accepted_by_meta": narrow(abm)}
+    if cfg.trace.enabled:
+        # An authored record with an already-registered tracked key
+        # stamps the author's lineage on the create channel (a
+        # capacity-dropped insert counts: lineage is arrival history).
+        first, chan = wide(state.trace_first), state.trace_chan.clone()
+        rpost = wide(state.round_index) + 1
+        newly_any = torch.zeros(n, dtype=torch.bool, device=dev)
+        for k in range(cfg.trace.tracked_slots):
+            m_k = (author_mask & (idx == wide(state.trace_member[k]))
+                   & ((gt_new & MASK) == wide(state.trace_gt[k]))
+                   & (first[:, k] == 0))
+            first[:, k] = torch.where(m_k, rpost, first[:, k])
+            chan[:, k] = torch.where(m_k, trp.CH_CREATE, chan[:, k])
+            newly_any = newly_any | m_k
+        leaves.update(trace_first=narrow(first), trace_chan=chan)
+        tdel = wide(state.stats.trace_delivered)
+        tdel[:, trp.CH_CREATE - 1] += newly_any.to(torch.int64)
+        stat_leaves["trace_delivered"] = narrow(tdel)
     return state.replace(
         store_gt=stc.gt, store_member=stc.member, store_meta=stc.meta,
         store_payload=stc.payload, store_aux=stc.aux, store_flags=stc.flags,
-        **diet_leaves,
+        **leaves,
         fwd_gt=fwd[0], fwd_member=fwd[1], fwd_meta=fwd[2],
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
@@ -1868,7 +2150,7 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
         global_time=narrow(torch.where(author_mask, gt_new,
                                        wide(state.global_time))),
         stats=state.stats.replace(
-            accepted_by_meta=narrow(abm),
+            **stat_leaves,
             **{k: narrow(wide(getattr(state.stats, k)) + v)
                for k, v in stats.items()}))
 
@@ -1983,3 +2265,49 @@ def coverage(state: PeerState, member: int, gt: int, meta: int,
     den = syncing.sum().clamp(min=1).to(torch.float32)
     return num / den
 
+
+def track_record(state: PeerState, cfg: CommunityConfig, author: int,
+                 gt: int) -> tuple:
+    """Register record ``(author, gt)`` for dissemination tracing: the
+    first free tracked slot takes its key, and every peer already
+    holding the record in its logical store (ring and staging) gets its
+    lineage stamped on the create channel -- at the intended call time,
+    right after the create, that is the author.  Idempotent: a key
+    already tracked returns its slot untouched.  Returns ``(state,
+    slot)``; raises when the plane is off or every slot is taken (slots
+    are never freed).  Runs on the state's device (the slot keys are
+    read to the host)."""
+    if not cfg.trace.enabled:
+        raise ValueError("track_record needs cfg.trace.enabled (the "
+                         "dissemination-tracing plane)")
+    author, gt = author & MASK, gt & MASK
+    keys_m = wide(state.trace_member).tolist()
+    keys_g = wide(state.trace_gt).tolist()
+    for k, (m, g) in enumerate(zip(keys_m, keys_g)):
+        if m == author and g == gt:
+            return state, k
+    free = [k for k, m in enumerate(keys_m) if m == EMPTY_U32]
+    if not free:
+        raise ValueError(
+            f"all {cfg.trace.tracked_slots} tracked slots are taken "
+            "(trace.tracked_slots); slots are never freed")
+    slot = free[0]
+    col = torch.arange(cfg.trace.tracked_slots,
+                       device=state.device) == slot
+    holds = ((wide(state.store_member) == author)
+             & (wide(state.store_gt) == gt)).any(dim=1)
+    if state.sta_gt.shape[1]:
+        holds = holds | ((wide(state.sta_member) == author)
+                         & (wide(state.sta_gt) == gt)).any(dim=1)
+    first = wide(state.trace_first)
+    newly = holds[:, None] & col[None, :] & (first == 0)
+    tdel = wide(state.stats.trace_delivered)
+    tdel[:, trp.CH_CREATE - 1] += newly.any(dim=1).to(torch.int64)
+    return state.replace(
+        trace_member=narrow(torch.where(col, author,
+                                        wide(state.trace_member))),
+        trace_gt=narrow(torch.where(col, gt, wide(state.trace_gt))),
+        trace_first=narrow(torch.where(
+            newly, wide(state.round_index) + 1, first)),
+        trace_chan=torch.where(newly, trp.CH_CREATE, state.trace_chan),
+        stats=state.stats.replace(trace_delivered=narrow(tdel))), slot

@@ -194,16 +194,23 @@ def sample_forward_targets(tab: CandTable, now: torch.Tensor,
 def sample_introductions(tab: CandTable, now: torch.Tensor,
                          cfg: CommunityConfig, seed, round_index,
                          self_idx: torch.Tensor, exclude: torch.Tensor,
-                         salt_base: int = 0) -> torch.Tensor:
+                         salt_base: int = 0, req_sym=None,
+                         slot_sym=None) -> torch.Tensor:
     """Third-peer picks for a batch of introduction responses: a uniformly
     random verified candidate other than the requester, one independent
-    draw per request slot.  i32[N, S], NO_PEER where nobody qualifies."""
+    draw per request slot.  i32[N, S], NO_PEER where nobody qualifies.
+    ``req_sym`` (bool[N, S]) and ``slot_sym`` (bool[N, K]), when given,
+    are the symmetric-NAT flags of the requesters and of the table's
+    candidates: a symmetric requester is never introduced to a symmetric
+    candidate (two such NATs cannot hole-punch)."""
     n, k = tab.peer.shape
     s = exclude.shape[1]
     dev = now.device
     cats = categories(tab, now, cfg)
     verified = (cats == CAT_WALKED) | (cats == CAT_STUMBLED)
     mask = verified[:, None, :] & (tab.peer[:, None, :] != exclude[:, :, None])
+    if req_sym is not None:
+        mask = mask & ~(req_sym[:, :, None] & slot_sym[:, None, :])
     salt = (torch.arange(s, device=dev)[:, None] * k
             + torch.arange(k, device=dev)[None, :] + salt_base)
     prio = rng.rand_u32(seed, round_index, self_idx[:, None, None],

@@ -59,6 +59,18 @@ def popcount_u32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & MASK) >> 24
 
 
+def popcount_rows(x: torch.Tensor) -> torch.Tensor:
+    """int64[N]: the set bits of each row of a u32 [N, W] tensor, counted
+    byte by byte in uint8 (the SWAR steps on each byte, then a row sum):
+    a quarter of the bytes :func:`popcount_u32` moves in its int64
+    carriers."""
+    v = x.contiguous().view(torch.uint8)
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    v = (v + (v >> 4)) & 0x0F
+    return v.sum(dim=1, dtype=torch.int64)
+
+
 def store_invariant_violated(gt: torch.Tensor,
                              member: torch.Tensor) -> torch.Tensor:
     """bool[N]: does an adjacent pair of store slots break the ascending

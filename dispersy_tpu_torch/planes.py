@@ -13,8 +13,7 @@ copies because importing any module of ``dispersy_tpu`` pulls in JAX:
 - :class:`ParallelConfig` — ``dispersy_tpu/shardplane.py``
 
 The copies make configs validate, compare and size state exactly as the
-JAX package does; the engine runs the fault, recovery, overload and
-parallel planes, and refuses telemetry and trace (``engine.check_slice``).
+JAX package does; the engine runs every one of these planes.
 """
 
 from __future__ import annotations
@@ -27,8 +26,6 @@ from dispersy_tpu_torch.exceptions import ConfigError
 MAX_TELEMETRY_PEERS = (1 << 32) // 255 - 1
 # faults.py health-sentinel bits (recovery.NUM_HEALTH_BITS counts them).
 NUM_HEALTH_BITS = 4
-# traceplane.py channel table width.
-NUM_CHANNELS = 4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
-the permissioned and the hardened communities and the chaos round at
-that shape, the schedules that drive them, and the card's profile of a
-main path.
+the permissioned and the hardened communities, the chaos round and the
+observed round (telemetry and tracing) at that shape, the schedules that
+drive them, and the card's profile of a main path.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -9,6 +9,7 @@ helpers price XLA executables and have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import NamedTuple
 
@@ -22,7 +23,8 @@ from dispersy_tpu_torch.config import (DEFAULT_PRIORITY, EMPTY_U32,
                                        perm_bit)
 from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
-                                       StoreConfig)
+                                       StoreConfig, TelemetryConfig,
+                                       TraceConfig)
 
 
 def bench_config(n_peers: int, platform: str = "tpu") -> CommunityConfig:
@@ -102,6 +104,42 @@ def one_record_schedule(n_peers: int) -> list:
     its author's id) by every 64th peer before round 0."""
     idx = np.arange(n_peers, dtype=np.uint32)
     return [Create(0, 1, idx % 64 == 0, idx, np.zeros_like(idx))]
+
+
+class Track(NamedTuple):
+    """``engine.track_record(author, gt)`` before round ``round``'s step
+    (after its creates)."""
+    round: int
+    author: int
+    gt: int
+
+
+def observed_config(n_peers: int) -> CommunityConfig:
+    """The observed round: :func:`bench_config` with the telemetry plane
+    (the packed row, a 64-round device ring, the histograms) and the
+    dissemination-tracing plane (4 tracked slots) -- the JAX package's
+    cost-ledger ``trace`` cell (``dispersy_tpu/costmodel.py:103-114``)."""
+    return bench_config(n_peers).replace(
+        telemetry=TelemetryConfig(enabled=True, history=64,
+                                  histograms=True),
+        trace=TraceConfig(enabled=True))
+
+
+def observed_schedule(n_peers: int) -> list:
+    """:func:`one_record_schedule` with the records of peers 64, 128, 192
+    and 256 (global time 2) tracked right after their creates."""
+    return one_record_schedule(n_peers) + [Track(0, a, 2)
+                                           for a in (64, 128, 192, 256)]
+
+
+def syncless_config(n_peers: int) -> CommunityConfig:
+    """The byte-diet round without the sync exchange: :func:`bench_config`
+    with ``sync_enabled=False`` and one cohort (the JAX package refuses
+    cohorts > 1 without sync): no digest, freshness the exact test
+    against ring and staging, records spread by push alone."""
+    cfg = bench_config(n_peers)
+    return cfg.replace(sync_enabled=False,
+                       store=dataclasses.replace(cfg.store, cohorts=1))
 
 
 def permissioned_roles(n_peers: int) -> dict:
@@ -313,8 +351,9 @@ def plant_fwd(fwd: dict, plant: Plant) -> dict:
 
 
 def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
-    """Make the creates and plants of round ``rnd`` on a port state, in
-    order (an undo-other's aux read from the state's own store rows)."""
+    """Make the creates, plants and tracks of round ``rnd`` on a port
+    state, in order (an undo-other's aux read from the state's own store
+    rows)."""
     import torch
 
     from dispersy_tpu_torch import engine
@@ -327,6 +366,9 @@ def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
                      for k in ("store_gt", "store_member", "store_meta"))
     for c in creates:
         if c.round != rnd:
+            continue
+        if isinstance(c, Track):
+            state, _ = engine.track_record(state, cfg, c.author, c.gt)
             continue
         if isinstance(c, Plant):
             cols = {k: getattr(state, f"fwd_{k}") for k in FWD_COLS}
@@ -364,12 +406,15 @@ def pin_gt(payload: np.ndarray, authors: np.ndarray, rows) -> np.ndarray:
 # Every device function of the hand-written kernels (csrc/*.cu) is named
 # with this prefix, which gives the profile's own-kernel share.
 OWN_KERNEL_PREFIX = "dk_"
+# The engine's profiler ranges around the telemetry and trace planes'
+# work (``torch.profiler.record_function`` in ``engine._step_impl``).
+ENGINE_SCOPES = ("trace_lineage", "trace_coverage", "telemetry_row")
 
 
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                    seed: int = 0, top: int = 15, diet: bool = False,
                    timeline: bool = False, hardened: bool = False,
-                   chaos: bool = False) -> dict:
+                   chaos: bool = False, observed: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
     ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
@@ -382,14 +427,18 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     (the traced rounds 3-5 hold the round-4 equivocations and the
     convictions and gossip they start); with ``chaos``, the chaos round
     of :func:`chaos_config` (8 shards, budget 4096) driven by
-    :func:`one_record_schedule`.  Reports wall time; device busy time (the sum
+    :func:`one_record_schedule`; with ``observed``, the observed round of
+    :func:`observed_config` driven by :func:`observed_schedule` (the
+    traced rounds as ``diet``'s).  Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
-    the share of it in the hand-written kernels; and the ``top`` entries
+    the share of it in the hand-written kernels; the device time the
+    profiler gives each of the engine's plane ranges
+    (:data:`ENGINE_SCOPES`); and the ``top`` entries
     by device time, both as PyTorch ops (host-side events, each charged
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
     ``python -m dispersy_tpu_torch.profiling [--diet | --timeline |
-    --hardened | --chaos]`` prints it as one JSON line."""
+    --hardened | --chaos | --observed]`` prints it as one JSON line."""
     import time
 
     import torch
@@ -400,9 +449,13 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    if diet + timeline + hardened + chaos > 1:
-        raise ValueError("pick one of diet, timeline, hardened and chaos")
-    if chaos:
+    if diet + timeline + hardened + chaos + observed > 1:
+        raise ValueError("pick one of diet, timeline, hardened, chaos and "
+                         "observed")
+    if observed:
+        cfg = observed_config(n_peers)
+        creates = observed_schedule(n_peers)
+    elif chaos:
         cfg = chaos_config(n_peers)
         creates = one_record_schedule(n_peers)
     elif hardened:
@@ -429,7 +482,10 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
             state = advance(state, rnd)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.self_device_time_total]
+    # The engine's ranges are not kernels (the profiler may put them on
+    # the device timeline): they are reported apart.
+    events = [e for e in prof.key_averages() if e.self_device_time_total
+              and e.key not in ENGINE_SCOPES]
     device = [e for e in events if e.device_type != DeviceType.CPU]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
 
@@ -450,11 +506,15 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
         "timeline": timeline, "hardened": hardened, "chaos": chaos,
+        "observed": observed,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
         "device_idle_share": 1.0 - busy * rounds / wall_ms,
         "own_kernel_ms_per_round": ms([e for e in device if own(e)]),
+        "scope_device_ms_per_round": {
+            e.key: e.device_time_total / 1e3 / rounds
+            for e in prof.key_averages() if e.key in ENGINE_SCOPES},
         "device_events_per_round": sum(e.count for e in device) / rounds,
         "top_ops": table(ops), "top_kernels": table(device),
     }
@@ -2085,6 +2145,9 @@ if __name__ == "__main__":
                        help="trace the hardened round of hardened_config")
     which.add_argument("--chaos", action="store_true",
                        help="trace the chaos round of chaos_config")
+    which.add_argument("--observed", action="store_true",
+                       help="trace the observed round of observed_config "
+                       "(telemetry and tracing on the diet round)")
     args = ap.parse_args()
     if args.delivery is not None:
         for run in (profile_roots(args.delivery, "profile_delivery()")
@@ -2111,4 +2174,5 @@ if __name__ == "__main__":
             raise SystemExit(0)
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
                                     hardened=args.hardened, chaos=args.chaos,
+                                    observed=args.observed,
                                     rounds=5 if args.timeline else 3)))

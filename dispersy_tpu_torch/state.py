@@ -15,7 +15,9 @@ import torch
 
 from dispersy_tpu_torch.config import (EMPTY_META, EMPTY_U32, NO_PEER,
                                        CommunityConfig)
-from dispersy_tpu_torch.planes import NUM_CHANNELS, NUM_HEALTH_BITS
+from dispersy_tpu_torch.planes import NUM_HEALTH_BITS
+from dispersy_tpu_torch.telemetry import FLIGHT_WIDTH, row_width
+from dispersy_tpu_torch.traceplane import NUM_CHANNELS
 from dispersy_tpu_torch.u32 import full_u32, narrow, zeros
 
 NEVER = -1.0e9  # "timestamp never happened" for float32 sim-seconds fields
@@ -234,9 +236,6 @@ def init_state(config: CommunityConfig, seed: int = 0,
     Equal leaf for leaf to ``dispersy_tpu.state.init_state(config,
     jax.random.PRNGKey(seed))``.
     """
-    if config.telemetry.enabled:
-        raise NotImplementedError(
-            "telemetry.enabled: the packed telemetry row is not ported yet")
     dev = resolve_device(device)
     n, k, m = config.n_peers, config.k_candidates, config.msg_capacity
     f = config.forward_buffer
@@ -251,6 +250,7 @@ def init_state(config: CommunityConfig, seed: int = 0,
     aux_empty = 0xFFFF if aux_dt == torch.uint16 else EMPTY_U32
     st_n = n if config.store_stagger else 0
     dl = config.delay_inbox
+    rw = row_width(config)
 
     def u32(shape, v=0):
         return full_u32(shape, v, dev)
@@ -290,9 +290,9 @@ def init_state(config: CommunityConfig, seed: int = 0,
         repair_round=u32((n if config.recovery.enabled else 0,)),
         bucket=z((n if config.overload.enabled else 0,), torch.uint8),
         walk_streak=u32((n if config.telemetry.histograms else 0,)),
-        tele_row=u32((0,)),
-        tele_ring=u32((config.telemetry.history, 0)),
-        fr_ring=u32((config.telemetry.flight_recorder, 8)),
+        tele_row=u32((rw,)),
+        tele_ring=u32((config.telemetry.history, rw)),
+        fr_ring=u32((config.telemetry.flight_recorder, FLIGHT_WIDTH)),
         fr_pos=u32((1 if config.telemetry.flight_recorder else 0,)),
         trace_member=u32((t_w,), EMPTY_U32),
         trace_gt=u32((t_w,), EMPTY_U32),

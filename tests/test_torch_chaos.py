@@ -6,11 +6,13 @@ The ops of the planes (``ops/faults.py``, ``ops/overload.py``,
 ``ops/recovery.py``; the Bloom build against the JAX package's chunked
 one) on numpy-seeded inputs; then every state leaf after every round of
 ``engine.step`` in the configs of the JAX package's own tests of these
-planes (``tests/test_parallel.py``'s chaos config without its
-telemetry, with ``tests/test_oracle.py``'s priority admission on its
-capped exchange; ``tests/test_recovery.py``'s quarantining one with
-partitions on uncapped shards) and the unsharded chaos round of
-``profiling.chaos_config``; each case asserts that its planes engaged.
+planes (``tests/test_parallel.py``'s chaos config with its telemetry,
+with ``tests/test_oracle.py``'s priority admission on its capped
+exchange; ``tests/test_recovery.py``'s quarantining one with its
+telemetry and partitions on uncapped shards; both with the trace plane
+tracking the created records) and the unsharded chaos round of
+``profiling.chaos_config``; each case asserts that its planes engaged,
+and the ring-drained metrics rows equal the JAX package's every round.
 The JAX side runs the jitted ``step``: one compile per config, so each
 case arms several planes.
 """
@@ -30,6 +32,7 @@ from dispersy_tpu import metrics as jmetrics
 from dispersy_tpu import overload as jovl
 from dispersy_tpu import recovery as jrec
 from dispersy_tpu import shardplane, storediet, telemetry, traceplane
+from dispersy_tpu import telemetry as jtelemetry
 from dispersy_tpu import state as jstate
 from dispersy_tpu.ops import bloom as jbloom
 from dispersy_tpu.ops import faults as jflt
@@ -48,7 +51,9 @@ from dispersy_tpu_torch.ops import recovery as rco
 from dispersy_tpu_torch.ops import store as st
 from dispersy_tpu_torch.planes import (FaultModel, OverloadConfig,
                                        ParallelConfig, RecoveryConfig,
-                                       StoreConfig)
+                                       StoreConfig, TelemetryConfig,
+                                       TraceConfig)
+from dispersy_tpu_torch.telemetry import flight_records
 
 from test_torch_ops import (ref, release_xla_executables,  # noqa: F401
                             same, to_np, to_t, u32)
@@ -109,6 +114,12 @@ def test_popcount_and_store_invariant():
     x = u32(rs, 40, 15)
     same([flt.popcount_u32(to_t(x)).numpy().astype(np.uint32)],
          [jflt.popcount_u32(jnp.asarray(x))])
+    # The per-row totals the health check and the bloom_fill histogram
+    # read, counted byte by byte.
+    np.testing.assert_array_equal(
+        flt.popcount_rows(to_t(x)).numpy(),
+        np.asarray(jflt.popcount_u32(jnp.asarray(x))).astype(np.int64)
+        .sum(axis=1))
     gt = np.sort(u32(rs, 50, 12, hi=40), axis=1)
     gt[:, 9:] = 0xFFFFFFFF
     member = u32(rs, 50, 12, hi=3)
@@ -201,11 +212,12 @@ RECOV = RecoveryConfig(enabled=True, backoff_limit=3, backoff_decay=0.5,
 # name: (config, rounds, seed).  Each case arms several planes at once,
 # since each config costs one JAX step compile.
 CASES = {
-    # tests/test_parallel.py's _chaos_cfg without its telemetry -- the GE
-    # channel, flooders and health on the diet store, 8 capped shards --
-    # with tests/test_oracle.py's priority admission (:172-177) on the
-    # capped exchange (:158-161).  A push inbox of 1 and buckets of rate
-    # 4, depth 8 make the priority and rate sheds engage beside the cap.
+    # tests/test_parallel.py's _chaos_cfg -- the GE channel, flooders and
+    # health on the diet store, its telemetry, 8 capped shards -- with
+    # tests/test_oracle.py's priority admission (:172-177) on the capped
+    # exchange (:158-161) and two tracked records.  A push inbox of 1 and
+    # buckets of rate 4, depth 8 make the priority and rate sheds engage
+    # beside the cap.
     "chaos_diet": (CommunityConfig(
         n_peers=64, n_trackers=2, k_candidates=8, msg_capacity=32,
         bloom_capacity=16, request_inbox=4, tracker_inbox=16,
@@ -217,11 +229,15 @@ CASES = {
         overload=OverloadConfig(enabled=True, bucket_rate=4.0,
                                 bucket_depth=8),
         store=StoreConfig(staging=8, compact_every=4, aux_bits=16),
+        telemetry=TelemetryConfig(enabled=True, history=4,
+                                  flight_recorder=4),
+        trace=TraceConfig(enabled=True, tracked_slots=2),
         parallel=ParallelConfig(shards=8, cross_shard_budget=2)), 12, 7),
-    # tests/test_recovery.py::test_all_recovery_stages_trace without its
-    # telemetry, plus the CHAOS mix's partitions, on 4 uncapped shards
-    # (tests/test_oracle.py:187-190, where the shards do not show): soft
-    # repairs, backoff bumps, quarantines and severed edges.
+    # tests/test_recovery.py::test_all_recovery_stages_trace with its
+    # telemetry (histograms, the flight recorder), plus the CHAOS mix's
+    # partitions, on 4 uncapped shards (tests/test_oracle.py:187-190,
+    # where the shards do not show), and the trace plane: soft repairs,
+    # backoff bumps, quarantines (which wipe lineage) and severed edges.
     "quarantine": (CommunityConfig(
         **dict(ORACLE_BASE, bloom_capacity=4), push_inbox=2,
         packet_loss=0.05, churn_rate=0.03,
@@ -229,6 +245,9 @@ CASES = {
                           partitions=PARTITIONS, dup_rate=0.2,
                           corrupt_rate=0.1, health_checks=True,
                           health_drop_limit=2), recovery=RECOV,
+        telemetry=TelemetryConfig(enabled=True, history=6, histograms=True,
+                                  flight_recorder=8, flight_per_round=3),
+        trace=TraceConfig(enabled=True),
         parallel=ParallelConfig(shards=4)), 12, 1),
     # The chaos round unsharded (profiling.chaos_config(256, shards=0)):
     # K1 takes the admission classes.
@@ -242,8 +261,10 @@ SLOW_CASES = {
 
 def run_pair(pc, rounds, seed, spies=None):
     """Both packages through ``rounds`` rounds (every 16th peer authors
-    one record first), every leaf held equal after each round.  Returns
-    the port's state and the largest health OR seen."""
+    one record first, the first two tracked with the trace plane on),
+    every leaf held equal after each round, and with a telemetry ring
+    the metrics rows drained from it.  Returns the port's state, the
+    largest count of flagged peers seen and the GE channels' bad count."""
     jc = to_jax(pc)
     js = ref(jstate.init_state, jc, jax.random.PRNGKey(seed))
     ps = init_state(pc, seed, device="cpu")
@@ -258,14 +279,27 @@ def run_pair(pc, rounds, seed, spies=None):
     ps = engine.create_messages(ps, pc, torch.from_numpy(authors), 1,
                                 torch.from_numpy(payload.astype(np.int64)))
     assert_states_equal(ps, js, "create_messages")
+    if pc.trace.enabled:
+        for author in (5, 21):
+            js, want = jeng.track_record(js, jc, author, 2)
+            ps, got = engine.track_record(ps, pc, author, 2)
+            assert got == want
+        assert_states_equal(ps, js, "track_record")
+    jlog, plog = jmetrics.MetricsLog(), metrics.MetricsLog()
     flagged = ge_seen = 0
     for rnd in range(rounds):
         js = jeng.step(js, jc)
         ps = engine.step(ps, pc)
         assert_states_equal(ps, js, f"round {rnd}")
+        if pc.telemetry.history:
+            plog.extend_from_ring(ps, pc)
+            jlog.extend_from_ring(js, jc)
+            assert plog.rows == jlog.rows and len(plog.rows) == rnd + 1
         flagged = max(flagged, int((state_to_numpy(ps)["health"] != 0).sum()))
         ge_seen += int(ps.ge_bad.sum())
     same_snapshot(ps, pc, js, jc)
+    if pc.telemetry.flight_recorder:
+        assert flight_records(ps, pc) == jtelemetry.flight_records(js, jc)
     return ps, flagged, ge_seen
 
 
@@ -323,6 +357,12 @@ def check_engaged(case, ps, flagged, ge_seen, counts):
         assert counts["severed"] > 0
         for name in ("recov_soft", "recov_backoff", "recov_quarantine"):
             assert total(ps, name) > 0, name
+        assert flight_records(ps, CASES[case][0]), "nothing recorded"
+    if CASES.get(case, (None,))[0] is not None and \
+            CASES[case][0].trace.enabled:
+        # The tracked records spread and their deliveries were counted.
+        assert int(state_to_numpy(ps)["trace_first"].astype(bool).sum()) > 2
+        assert total(ps, "trace_delivered") > 2
     if case == "chaos_unsharded":
         assert counts["cls"] > 0 and counts["ragged"] == 0
 
@@ -348,7 +388,10 @@ def test_plane_reports_equal_jax():
     """``faults.health_report`` / ``debug_validate`` /
     ``enablement_signature``, ``overload.overload_report`` and
     ``recovery.recovery_report`` on the same state in both packages."""
-    pc = CASES["quarantine"][0]
+    # The cases' configs without the telemetry and trace planes, which
+    # these reports do not read.
+    bare = dict(telemetry=TelemetryConfig(), trace=TraceConfig())
+    pc = CASES["quarantine"][0].replace(**bare)
     jc = to_jax(pc)
     rs = np.random.default_rng(9)
     ps = init_state(pc, 1, device="cpu")
@@ -371,7 +414,7 @@ def test_plane_reports_equal_jax():
     assert faults.debug_validate(bad, pc)
     with pytest.raises(AssertionError, match="debug_validate"):
         faults.debug_validate(bad, pc, raise_on_error=True)
-    oc = CASES["chaos_diet"][0]
+    oc = CASES["chaos_diet"][0].replace(**bare)
     ps = init_state(oc, 1, device="cpu")
     js = jstate.init_state(to_jax(oc), jax.random.PRNGKey(1))
     bucket = rs.integers(0, 5, size=oc.n_peers).astype(np.uint8)

@@ -73,6 +73,7 @@ PLANE_ARGS = {"store": (storediet.StoreConfig, planes.StoreConfig),
               "faults": (faults.FaultModel, planes.FaultModel),
               "telemetry": (telemetry.TelemetryConfig,
                             planes.TelemetryConfig),
+              "trace": (traceplane.TraceConfig, planes.TraceConfig),
               "recovery": (recovery.RecoveryConfig, planes.RecoveryConfig),
               "overload": (overload.OverloadConfig, planes.OverloadConfig),
               "parallel": (shardplane.ParallelConfig,
@@ -195,12 +196,66 @@ def test_check_slice_accepts_the_chaos_planes(plane):
     engine.check_slice(pc)
 
 
+# The telemetry and trace planes, symmetric NAT and the diet without
+# sync: on the slice, with every leaf sized as the JAX package sizes it.
+NEW_PLANES = {
+    "telemetry": dict(faults=dict(health_checks=True),
+                      telemetry=dict(enabled=True, history=8,
+                                     histograms=True, flight_recorder=4)),
+    "trace": dict(trace=dict(enabled=True, tracked_slots=3)),
+    "p_symmetric": dict(p_symmetric=0.3),
+    "sync_enabled": dict(sync_enabled=False,
+                         store=dict(staging=8, compact_every=4)),
+}
+SIZED = {
+    "telemetry_row": dict(telemetry=dict(enabled=True)),
+    "telemetry_ring_hist_flight": NEW_PLANES["telemetry"],
+    "every_row_plane": dict(
+        faults=dict(health_checks=True), n_meta=3,
+        telemetry=dict(enabled=True, history=5, histograms=True,
+                       hist_buckets=9, flight_recorder=6,
+                       flight_per_round=2),
+        trace=dict(enabled=True, tracked_slots=5),
+        overload=dict(enabled=True), recovery=dict(enabled=True)),
+    "syncless_diet_traced": dict(NEW_PLANES["sync_enabled"],
+                                 trace=dict(enabled=True)),
+}
+
+
+@pytest.mark.parametrize("field", sorted(NEW_PLANES))
+def test_check_slice_accepts_the_new_planes(field):
+    from dispersy_tpu_torch import engine
+    _, pc = build(dict(CONFIGS[1], **NEW_PLANES[field]))
+    engine.check_slice(pc)
+
+
+@pytest.mark.parametrize("case", sorted(SIZED))
+def test_init_state_sizes_the_new_planes(case):
+    """tele_row / tele_ring (the row's width), fr_ring / fr_pos,
+    walk_streak, trace_* and the digest sized as the JAX package sizes
+    them, leaf for leaf."""
+    from test_torch_ops import ref
+    jc, pc = build(dict(CONFIGS[1], **SIZED[case]))
+    got = init_state(pc, 9, device="cpu")
+    assert_states_equal(got, ref(jstate.init_state, jc,
+                                 jax.random.PRNGKey(9)), "init_state")
+    tc = pc.telemetry
+    assert got.tele_row.shape == (telemetry.row_width(jc),)
+    assert got.tele_ring.shape == (tc.history, telemetry.row_width(jc))
+    assert got.fr_ring.shape == (tc.flight_recorder, 8)
+    assert got.walk_streak.numel() == (pc.n_peers if tc.histograms else 0)
+    t = pc.trace.tracked_slots if pc.trace.enabled else 0
+    assert got.trace_first.shape == ((pc.n_peers, t) if t else (0, 0))
+    if not pc.sync_enabled:
+        assert got.digest.numel() == 0
+
+
 @pytest.mark.parametrize("field,kw", [
-    ("telemetry", dict(telemetry=planes.TelemetryConfig(enabled=True))),
-    ("trace", dict(trace=planes.TraceConfig(enabled=True))),
     ("communities", dict(communities=((60, 1), (66, 1)))),
     ("delay_inbox", dict(delay_inbox=3, timeline_enabled=True, n_meta=4,
                          protected_meta_mask=0b10)),
+    ("double_meta_mask", dict(double_meta_mask=1)),
+    ("direct_meta_mask", dict(direct_meta_mask=1)),
 ])
 def test_check_slice_still_refuses(field, kw):
     from dispersy_tpu_torch import engine
@@ -214,8 +269,7 @@ def test_chaos_config_init_state_equal():
     package does for the same planes."""
     pc = profiling.chaos_config(256)
     kw = {f.name: getattr(pc, f.name) for f in dataclasses.fields(pc)}
-    for name, (jcls, _) in dict(
-            PLANE_ARGS, trace=(traceplane.TraceConfig, None)).items():
+    for name, (jcls, _) in PLANE_ARGS.items():
         kw[name] = jcls(**dataclasses.asdict(kw[name]))
     jc = jconfig.CommunityConfig(**kw)
     want = jstate.init_state(jc, jax.random.PRNGKey(5))

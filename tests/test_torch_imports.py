@@ -34,4 +34,5 @@ def test_no_jax_imports(path):
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "bridge.py", "chip_smoke.py", "intake.py",
-            "timeline.py", "profiling.py"} <= names
+            "timeline.py", "profiling.py", "telemetry.py",
+            "traceplane.py", "trace.py"} <= names

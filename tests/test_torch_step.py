@@ -27,8 +27,7 @@ from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch import profiling
 from dispersy_tpu_torch.bridge import first_difference
 from dispersy_tpu_torch.config import META_DYNAMIC
-from dispersy_tpu_torch.planes import (StoreConfig, TelemetryConfig,
-                                       TraceConfig)
+from dispersy_tpu_torch.planes import StoreConfig
 from dispersy_tpu_torch.storediet import phase_of
 
 from test_torch_ops import ref, release_xla_executables  # noqa: F401
@@ -40,8 +39,11 @@ BASE = dict(n_peers=128, n_trackers=2, k_candidates=8, msg_capacity=32)
 CASES = {
     "warm": (BASE, True),
     "cold": (BASE, False),
+    # With tests/test_nat.py's symmetric-NAT share: the introduction
+    # filters and the puncture gate.
     "lossy_churn_modulo": (dict(BASE, packet_loss=0.1, churn_rate=0.02,
-                                sync_strategy="modulo"), True),
+                                sync_strategy="modulo", p_symmetric=0.3),
+                           True),
 }
 ROUNDS = 20
 
@@ -114,6 +116,13 @@ DIET_CASES = {  # (config, store, rounds)
     "cohorts1_churn_loss": (dict(BASE, churn_rate=0.02, packet_loss=0.05),
                             dict(staging=8, compact_every=4, aux_bits=16),
                             12),
+    # The diet without the sync exchange (one cohort: the JAX package
+    # refuses more without sync): no digest, freshness the exact test
+    # against ring and staging, records spread by push alone.
+    "syncless_churn_loss": (dict(BASE, churn_rate=0.02, packet_loss=0.05,
+                                 sync_enabled=False),
+                            dict(staging=8, compact_every=4, aux_bits=16),
+                            12),
 }
 
 
@@ -131,11 +140,15 @@ def test_diet_rounds_equal_jax_every_leaf(case):
     assert cov == float(jeng.coverage(js, 3, 2, 1, 3 * 7 + 11))
     same_snapshot(ps, pc, js, jc)
     # The run did real work: records were staged and compacted into the
-    # rings, the digests filled, walks succeeded.
+    # rings, the digests filled (there is none without sync), walks
+    # succeeded.
     arrays = state_to_numpy(ps)
     assert staged
     assert arrays["stats.msgs_stored"].sum() > kw["n_peers"]
-    assert arrays["digest"].any()
+    if kw.get("sync_enabled", True):
+        assert arrays["digest"].any()
+    else:
+        assert arrays["digest"].size == 0
     assert arrays["stats.walk_success"].sum() > 0
     assert cov > 0.0
 
@@ -155,13 +168,10 @@ def test_diet_phase_argument_equals_cadence():
         engine.step(ps, pc, "compact")
 
 
-@pytest.mark.parametrize("field", ["sync_enabled", "direct_meta_mask"])
+@pytest.mark.parametrize("field", ["direct_meta_mask"])
 def test_diet_off_slice_raises(field):
-    """The diet without the sync exchange, and direct metas, are not
-    ported."""
-    extra = ({"sync_enabled": False} if field == "sync_enabled" else
-             {"direct_meta_mask": 1})
-    cfg = CommunityConfig(**BASE, **extra, store=StoreConfig(staging=4))
+    """Direct metas are not ported, on the diet either."""
+    cfg = CommunityConfig(**BASE, **{field: 1}, store=StoreConfig(staging=4))
     st = init_state(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=field):
         engine.step(st, cfg)
@@ -169,9 +179,6 @@ def test_diet_off_slice_raises(field):
 
 @pytest.mark.parametrize("field,value", [
     ("double_meta_mask", 1),
-    ("telemetry", TelemetryConfig(enabled=True)),
-    ("trace", TraceConfig(enabled=True)),
-    ("p_symmetric", 0.25),
 ])
 def test_off_slice_config_raises(field, value):
     cfg = CommunityConfig(**dict(BASE, **{field: value}))
