@@ -5,8 +5,9 @@ one card, in turns.
     python3 chip_ab.py OTHER_ROOT [PATH ...]
 
 runs the six main paths of the first slices (or only the named ones, in
-the order given: say ``chaos chaos_flat``; ``observed`` and ``syncless``
-run only when named, on checkouts that have them) of the checkout at
+the order given: say ``chaos chaos_flat``; ``observed``, ``syncless``
+and ``soak`` run only when named, on checkouts that have them) of the
+checkout at
 ``OTHER_ROOT`` (say, the parent
 commit unpacked with ``git archive`` into a git-ignored directory) and of
 this one in the order other, this, this, other -- each run a process of
@@ -74,11 +75,24 @@ def run_paths(root: str, only: list) -> dict:
         mains["syncless"] = (syncless_config(n), cs.SYNCLESS_PATH,
                              cs.SYNCLESS_WARMUP, cs.SYNCLESS_ROUNDS, one,
                              (64, 2, 1, 64), None)
+    channels = {}
+    if "soak" in only:
+        from dispersy_tpu_torch.profiling import (soak_config, soak_roles,
+                                                  soak_schedule)
+        soak = soak_config(n)
+        mains["soak"] = (soak, cs.SOAK_PATH, cs.SOAK_WARMUP, cs.SOAK_ROUNDS,
+                         soak_schedule(n, cs.SEED),
+                         (soak.founder, 3, 0xF0,
+                          int(soak_roles(n, cs.SEED)["grantees"][0])),
+                         None)
+        channels["soak"] = cs.SOAK_CHANNELS
     out = {}
     for path in only or mains:
         cfg, needed, warmup, rounds, creates, record, spread = mains[path]
         r = cs.main_phase(cfg, path, needed, cs.SEED, warmup, rounds,
-                          creates, record, spread=spread)
+                          creates, record, spread=spread,
+                          **({"channels": channels[path]}
+                             if path in channels else {}))
         out[path] = {"ms": r["ms_per_round"], "round_ms": r["round_ms"],
                      "peak_gib": r["peak_mem_gib"],
                      "allocator": r.get("allocator_timed")}

@@ -26,7 +26,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its corners: B = 1-40 by M = 1-48, rows out of order among sorted
    ones, EMPTY keys, all-EMPTY rings, keys at 2^31 and 0xFFFFFFFE),
    the byte-diet round's
-   (u16 aux columns, per-row Bloom salts, the cohort block, the staging
+   (u16 aux columns, per-row Bloom salts, K1 on the quiet request, K4 at
+   the forward buffer, the cohort block, the staging
    buffer, and K7's corners: holes among a row's valid entries, full
    rows, no arrival, every arrival dropped, S = 1 and 32, each aux width
    pair, B = 0 and 200), the permissioned round's (the [N, 8] grant
@@ -73,8 +74,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    overload plane must shed), 20 rounds each, the observed round
    (``profiling.observed_config(4096)`` with ``p_symmetric=0.3``, the
    health sentinels and an 8-record flight recorder, four records
-   tracked) and the diet without sync (``profiling.syncless_config``),
-   24 rounds each;
+   tracked), the diet without sync (``profiling.syncless_config``) and
+   the soak community (``profiling.soak_config(4096)`` driven by
+   ``profiling.soak_schedule``, every channel's counter nonzero after
+   it), 24 rounds each;
 4. main paths through the public entry points -- init_state,
    seed_overlay(8), the creates, warm-up and timed rounds -- each with
    every kernel's launch count read after it: the byte-diet round at
@@ -104,7 +107,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``syncless_config(1 << 20)``, 3 + 12 rounds, one compaction) runs,
    and K5 is held against its plain version and timed on the staging
    buffer and intake batch of its last round (the exact freshness test
-   against the unsorted staging, off K5's search path).
+   against the unsorted staging, off K5's search path).  Then the soak
+   round of ``soak_config(1 << 20)`` (3 + 8 rounds of
+   ``soak_schedule``), which fails unless every channel counter -- the
+   pen's parks, the proof, sequence, message and identity replies, the
+   completed and expired signature requests, the direct receipts --
+   grew in the timed rounds; the inputs of its new kernel call shapes
+   in its last timed round (``SoakCapture``: K1 on the signature and
+   the four request channels, K4 at each serve compaction and at the
+   pen rebuild, K11 on the pen and the countersigners, K8 and K9 on the
+   signature inbox) are held against the plain versions and timed
+   after it (``check_soak_kernels``).
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -162,6 +175,20 @@ SYNCLESS_PATH = ("deliver", "store_insert", "rank_compact_many",
                  "store_stage", "intake_checks")
 OBS_PARITY_ROUNDS = SYNCLESS_PARITY_ROUNDS = 24
 SYNCLESS_WARMUP, SYNCLESS_ROUNDS = 3, 12   # round 11 compacts
+SOAK_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
+             "rank_compact_many", "intake_checks", "timeline_check",
+             "timeline_check_many", "timeline_check_grant",
+             "timeline_check_grant_rev", "store_match_flip",
+             "store_match_undo_marked", "store_match_meta_of",
+             "store_match_undo_hits", "store_probe_conflict",
+             "store_probe_identity", "store_probe_seq_max")
+SOAK_PARITY_ROUNDS = 24
+SOAK_WARMUP, SOAK_ROUNDS = 3, 8
+# The counters of the soak community's channels: each must grow in the
+# parity run and in the main path's timed rounds.
+SOAK_CHANNELS = ("msgs_delayed", "proof_records", "seq_records",
+                 "mm_records", "id_records", "sig_done", "sig_expired",
+                 "msgs_direct")
 
 
 def fail(msg: str) -> None:
@@ -765,8 +792,8 @@ KERNEL_CHECKS = (check_deliver, check_deliver_corners, check_bloom,
 
 def check_diet_deliver(x: Draw, reps: int) -> list:
     """K1 on the diet's push blast, whose fifth column is the forward
-    buffer's u16 aux (timed), and on the quiet round's 2-column request
-    (the staggered sync round's too)."""
+    buffer's u16 aux, and on the quiet round's 2-column request (the
+    staggered sync round's too), each timed."""
     torch = x.torch
     from dispersy_tpu_torch.u32 import narrow
     cfg, n = x.cfg, x.cfg.n_peers
@@ -775,11 +802,11 @@ def check_diet_deliver(x: Draw, reps: int) -> list:
     cols = [x.u32(e), x.u32(e), x.u8(e, hi=8), x.u32(e), x.u16(e)]
     dst, valid, got, want = deliver_case(x, e, n, q, cols, 0.9)
     req = [narrow(torch.arange(n, device=x.dev)), x.u32(n)]
-    _, _, rg, rw = deliver_case(x, n, n, cfg.request_inbox, req, 0.9)
-    if max_abs_err(rg, rw):
-        fail("K1 disagrees with its plain version on the diet request")
+    rdst, rvalid, rg, rw = deliver_case(x, n, n, cfg.request_inbox, req, 0.9)
     return [k1_row(x, "deliver_diet_push_u16", dst, valid, cols, n, q, got,
-                   want, reps)]
+                   want, reps),
+            k1_row(x, "deliver_diet_request", rdst, rvalid, req, n,
+                   cfg.request_inbox, rg, rw, reps)]
 
 
 def check_diet_bloom(x: Draw, reps: int) -> list:
@@ -990,11 +1017,8 @@ def check_diet_store(x: Draw, reps: int) -> list:
 
 def check_diet_compact(x: Draw, reps: int) -> list:
     """K4 at the staggered serve's outbox (a cohort block's [N/4, 48]
-    gathered rings to width 8, six columns with the u16 aux), timed; and
-    at the forward buffer ([N, 24] to width 4, the aux at u16),
-    untimed."""
-    from dispersy_tpu_torch import kernels
-    from dispersy_tpu_torch.ops import store as st
+    gathered rings to width 8, six columns with the u16 aux) and at the
+    forward buffer ([N, 24] to width 4, the aux at u16), each timed."""
     from dispersy_tpu_torch.profiling import diet_cols
     cfg, n, m = x.cfg, x.cfg.n_peers, x.cfg.msg_capacity
     blk = n // cfg.store.cohorts
@@ -1010,12 +1034,9 @@ def check_diet_compact(x: Draw, reps: int) -> list:
     fcols = [(x.u32(n, bw), 0xFFFFFFFF), (x.u32(n, bw), 0xFFFFFFFF),
              (x.u8(n, bw), 0xFF), (x.u32(n, bw), 0xFFFFFFFF),
              (x.u16(n, bw), 0xFFFF)]
-    err = max_abs_err(kernels.rank_compact_many(fcols, fslot, fb),
-                      st.rank_compact_many_plain(fcols, fslot, fb))
-    if err != 0:
-        fail(f"kernel rank_compact_many at the diet's forward buffer "
-             f"disagrees with its plain version (max abs err {err})")
     return [compact_row("rank_compact_many_diet_serve", cols, slot, b,
+                        reps),
+            compact_row("rank_compact_many_diet_forward", fcols, fslot, fb,
                         reps)]
 
 
@@ -1730,6 +1751,20 @@ def check_hardened_parity(state, cfg) -> None:
     print(f"parity hardened: {out}, identities verify 1.0", flush=True)
 
 
+def counter_totals(state, names) -> dict:
+    """The ``names`` counters summed over the peers."""
+    from dispersy_tpu_torch.metrics import _u64_total
+    return {k: _u64_total(getattr(state.stats, k)) for k in names}
+
+
+def check_soak_parity(state) -> None:
+    """After the soak parity run: every channel's counter moved."""
+    tot = counter_totals(state, SOAK_CHANNELS)
+    if not all(tot.values()):
+        fail(f"soak parity run: a channel stayed idle: {tot}")
+    print(f"parity soak: {tot}", flush=True)
+
+
 def chaos_totals(state) -> dict:
     """The chaos planes' counters summed over the peers, and the count of
     peers whose health latch is set."""
@@ -1748,13 +1783,14 @@ def chaos_totals(state) -> dict:
 
 def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
                rounds: int, creates: list, record: tuple,
-               spread=None) -> dict:
+               spread=None, channels=()) -> dict:
     """Drive one main path through the public entry points with the
     launch counts set to 0 just before and read just after: the creates
     of each round before its step, the coverage of ``record`` (member,
     gt, meta, payload) after each timed round.  A round's time includes
     its creates.  ``spread`` (a function of the state, default the
-    coverage) must grow over the timed rounds."""
+    coverage) must grow over the timed rounds, and so must each counter
+    of ``channels``."""
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
@@ -1779,6 +1815,7 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     torch.cuda.synchronize()
     chaos = cfg.faults.health_checks
     shed0 = chaos_totals(state)["xshard_shed"] if chaos else 0
+    chan0 = counter_totals(state, channels)
     times, phases = [], []
     searched = "intake_checks" in kernels_needed
     off_search = 0
@@ -1855,8 +1892,15 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
             "msgs_rejected", "auth_unwound", "msgs_retro")}
         extra["killed"] = snap["killed"]
     if cfg.malicious_enabled:
-        extra = hardened_outcome(state, cfg)
+        extra.update(hardened_outcome(state, cfg))
         extra["spread"] = grown
+    if channels:
+        chan1 = counter_totals(state, channels)
+        timed = {k: chan1[k] - chan0[k] for k in channels}
+        if not all(timed.values()):
+            fail(f"{path} main path: a channel stayed idle in the timed "
+                 f"rounds: {timed}")
+        extra["channels_timed"] = timed
     if observed:
         extra = observed_checks(state, cfg, path, warmup, row_rounds,
                                 tracked_cov)
@@ -1966,6 +2010,219 @@ def check_syncless_intake(args, reps: int) -> dict:
     return row
 
 
+# ---- the soak path's kernels at the round's own inputs ----------------------
+
+class SoakCapture:
+    """While installed, keep the inputs of each kernel call shape that
+    the soak round adds, as the last round made them: K1 on the
+    signature channel and the four request channels, K4 at each
+    channel's first serve compaction and at the pen rebuild, K11 on the
+    pen and on the countersigners, K8 ``check`` on the signature inbox
+    and on the batch's countersigners, K9 ``flip`` on the signature
+    inbox; and the share of live pen slots and of slots that ask on each
+    channel.  The op wrappers are patched where the engine looks them
+    up; the calls themselves run unchanged."""
+
+    def __init__(self, cfg):
+        self.cfg, self.got, self.shares, self.channel = cfg, {}, {}, None
+
+    def __enter__(self):
+        from dispersy_tpu_torch import engine
+        from dispersy_tpu_torch.ops import intake
+        from dispersy_tpu_torch.ops import store as st
+        from dispersy_tpu_torch.ops import timeline as tl
+        cfg, got, n = self.cfg, self.got, self.cfg.n_peers
+        d, s_sz = cfg.delay_inbox, cfg.sig_inbox
+        # The intake batch's width: the pen, the sync pull, the push
+        # inbox, the completion, the replies (budget proof_budget for
+        # proofs and sequences, 1 for messages and identities).
+        b = (d + cfg.response_budget + cfg.push_inbox + 1
+             + 2 * d * cfg.proof_budget + 2 * d)
+        self.saved = [(m, k, getattr(m, k)) for m, k in (
+            (engine, "_deliver"), (engine, "_pen_channel"),
+            (st, "rank_compact_many"), (intake, "seq_stored_max"),
+            (intake, "identity_stored"), (tl, "check"),
+            (tl, "check_many"), (intake, "flip_best"))]
+        real = {k: f for _, k, f in self.saved}
+
+        def deliver(cfg_, dst, cols, valid, n_peers, inbox_size, *a, **kw):
+            if self.channel:
+                got[f"deliver_{self.channel}"] = (dst, cols, valid, n_peers,
+                                                  inbox_size)
+            elif (len(cols) == 4 and dst.shape[0] == n
+                  and inbox_size == s_sz):
+                got["deliver_sig"] = (dst, cols, valid, n_peers, inbox_size)
+            return real["_deliver"](cfg_, dst, cols, valid, n_peers,
+                                    inbox_size, *a, **kw)
+
+        def pen_channel(rt, stc, dl_src, want, *a):
+            name = a[-1]
+            self.channel, self.served = name, False
+            self.shares["pen_live"] = float((dl_src >= 0).float().mean())
+            self.shares[f"pen_asks_{name}"] = float(want.float().mean())
+            try:
+                return real["_pen_channel"](rt, stc, dl_src, want, *a)
+            finally:
+                self.channel = None
+
+        def compact(cols_fills, slot, width):
+            if self.channel and not self.served:
+                got[f"compact_{self.channel}"] = (cols_fills, slot, width)
+                self.served = True
+            elif len(cols_fills) == 7 and width == d:
+                got["compact_pen"] = (cols_fills, slot, width)
+            return real["rank_compact_many"](cols_fills, slot, width)
+
+        def seq_max(stc, member, meta):
+            if member.shape[1] == d:
+                got["seq_max_pen"] = (stc, member, meta)
+            return real["seq_stored_max"](stc, member, meta)
+
+        def ident(stc, member):
+            if member.shape[1] == d:
+                got["identity_pen"] = (stc, member)
+            elif member.shape[1] == b:
+                # The gate's call, then the countersigners' (kept).
+                got["identity_aux"] = (stc, member)
+            return real["identity_stored"](stc, member)
+
+        def check(tab, member, meta, gt, founder, *a, **kw):
+            q = member.shape[1]
+            if q == s_sz and gt.shape[1] == s_sz:
+                got["check_sig"] = (tab, member, meta, gt, founder)
+            elif q == b and meta.shape[1] == b:
+                got["check_aux"] = (tab, member, meta, gt, founder)
+            return real["check"](tab, member, meta, gt, founder, *a, **kw)
+
+        def check_many(tab, member, keys_perms, gt, founder):
+            if member.shape[1] == b:
+                got["check_many"] = (tab, member, keys_perms, gt, founder)
+            return real["check_many"](tab, member, keys_perms, gt, founder)
+
+        def flip(stc, q_meta, q_gt):
+            if q_gt.shape[1] == s_sz:
+                got["flip_sig"] = (stc, q_meta, q_gt)
+            return real["flip_best"](stc, q_meta, q_gt)
+        spies = {"_deliver": deliver, "_pen_channel": pen_channel,
+                 "rank_compact_many": compact, "seq_stored_max": seq_max,
+                 "identity_stored": ident, "check": check,
+                 "check_many": check_many, "flip_best": flip}
+        for m, k, _ in self.saved:
+            setattr(m, k, spies[k])
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, f in self.saved:
+            setattr(m, k, f)
+        return False
+
+
+def check_soak_kernels(cap: SoakCapture, reps: int) -> list:
+    """Every new call shape of the soak round, on the inputs its last
+    timed round gave it, held bit for bit against the plain version and
+    timed: K1 on the signature and request channels (with ``torch.sort``
+    of the packed key), K4 at each channel's serve compaction and at the
+    pen rebuild, K11 ``seq_stored_max`` and ``identity_stored`` on the
+    [N, D] pen and ``identity_stored`` on the batch's countersigners, K8
+    ``check`` on the [N, S] signature inbox and on the [N, B] batch's
+    countersigners, K9 ``flip`` on the signature inbox.  Prints what the
+    inputs carry: the pen's live share, the share of pen slots that ask
+    on each channel, each channel's request fill and the entries each
+    compaction keeps."""
+    import torch
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.config import PERM_PERMIT
+    from dispersy_tpu_torch.ops import inbox, intake
+    from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.profiling import k9_bytes, k11_cases
+    got, cfg = cap.got, cap.cfg
+    need = ([f"deliver_{c}" for c in ("sig", "proof", "seq", "mm", "id")]
+            + [f"compact_{c}" for c in ("proof", "seq", "mm", "id", "pen")]
+            + ["seq_max_pen", "identity_pen", "identity_aux", "check_many"])
+    missing = [k for k in need if k not in got]
+    if missing:
+        fail(f"soak main path: no call captured for {missing}")
+    x = inputs(cfg, SEED)
+    rows, shares = [], dict(cap.shares)
+    for key in need[:5]:
+        dst, cols, valid, n_dst, q = got[key]
+        inb, *rest = kernels.deliver(dst, cols, valid, n_dst, q)
+        want = inbox.deliver_plain(dst, cols, valid, n_dst, q)
+        shares[f"{key}_fill"] = float(valid.float().mean())
+        rows.append(k1_row(x, key, dst, valid, cols, n_dst, q,
+                           [*inb, *rest], [*want.inbox, *want[1:]], reps))
+        if key == "deliver_sig":
+            sig_inbox = inb             # (src, meta, payload, gt) [N, S]
+    # The counterparty's checks run only for a double-signed meta that is
+    # protected or dynamic, which the soak's is not: where the round made
+    # none, they take the round's signature inbox, its intake table and
+    # its batch, as such a meta would give them.
+    tab, b_member, pairs, b_gt, founder = got["check_many"]
+    sq_src, sq_meta, _, sq_gt = sig_inbox
+    got.setdefault("check_sig", (tab, sq_src, sq_meta, sq_gt, founder))
+    got.setdefault("check_aux", (tab, got["identity_aux"][1], pairs[2][0],
+                                 b_gt, founder))
+    got.setdefault("flip_sig", (got["seq_max_pen"][0], sq_meta, sq_gt))
+    for key in need[5:10]:
+        cols, slot, width = got[key]
+        slot = slot.to(torch.int32)
+        shares[f"{key}_kept"] = int(((slot >= 0) & (slot < width)).sum())
+        rows.append(compact_row(
+            "rank_compact_many_pen_rebuild" if key == "compact_pen"
+            else f"rank_compact_many_serve_{key[8:]}", cols, slot, width,
+            reps))
+    for name, mode, (stc, member), meta in (
+            ("store_probe_seq_max_pen", "seq_max", got["seq_max_pen"][:2],
+             got["seq_max_pen"][2]),
+            ("store_probe_identity_pen", "identity", got["identity_pen"],
+             None),
+            ("store_probe_identity_aux", "identity", got["identity_aux"],
+             None)):
+        if meta is None:
+            meta = torch.zeros(member.shape, dtype=torch.uint8,
+                               device=member.device)
+        s_cols, q_cols, plain, moved, cmps, replaces = k11_cases(
+            stc, member, member, meta, member, member)[mode]
+        out = kernels.store_probe(mode, s_cols, q_cols)
+        rows.append(timed_entry(
+            name, "cuda", "dispersy_tpu_torch/csrc/probe.cu", replaces,
+            [out], [plain()],
+            lambda s_cols=s_cols, q_cols=q_cols, mode=mode:
+            kernels.store_probe(mode, s_cols, q_cols), plain, moved, reps,
+            ops=cmps * member.numel() * stc.gt.shape[1],
+            kernel=f"store_probe_{mode}"))
+    for name, key in (("timeline_check_sig", "check_sig"),
+                      ("timeline_check_countersigner", "check_aux")):
+        tab, member, meta, gt, founder = got[key]
+        args = (tab, member, meta, gt, founder, PERM_PERMIT)
+        n, a = tab.member.shape
+        q = gt.shape[1]
+        out = kernels.timeline_check(*args)
+        rows.append(timed_entry(
+            name, "cuda", "dispersy_tpu_torch/csrc/timeline.cu",
+            "dispersy_tpu/ops/timeline.py:100", [out],
+            [tl.check_plain(*args)],
+            lambda args=args: kernels.timeline_check(*args),
+            lambda args=args: tl.check_plain(*args),
+            13 * n * a + nbytes(member, meta, gt, founder) + n * q, reps,
+            kernel="timeline_check"))
+    stc, q_meta, q_gt = got["flip_sig"]
+    w_cols = (stc.meta == 0xF4, stc.payload, stc.gt, stc.aux)
+    out = kernels.store_match("flip", w_cols, (q_meta, q_gt))
+    rows.append(timed_entry(
+        "store_match_flip_sig", "cuda", "dispersy_tpu_torch/csrc/match.cu",
+        "dispersy_tpu/ops/intake.py:182", [out],
+        [intake.flip_best_batch_plain(*w_cols, q_meta, q_gt)],
+        lambda: kernels.store_match("flip", w_cols, (q_meta, q_gt)),
+        lambda: intake.flip_best_batch_plain(*w_cols, q_meta, q_gt),
+        k9_bytes("flip", w_cols, (q_meta, q_gt), out), reps,
+        kernel="store_match_flip"))
+    print("soak inputs: " + json.dumps(shares), flush=True)
+    for row in rows:
+        row["_path"] = "soak"
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1988,7 +2245,9 @@ def main() -> int:
                                               one_record_schedule,
                                               permissioned_config,
                                               permissioned_schedule,
-                                              slice_config, syncless_config)
+                                              slice_config, soak_config,
+                                              soak_roles, soak_schedule,
+                                              syncless_config)
     from dispersy_tpu_torch.telemetry import flight_records
 
     t_start = time.perf_counter()
@@ -2066,6 +2325,9 @@ def main() -> int:
     if got.digest.numel() or not snapshot(got, syncless_config(
             PARITY_PEERS))["msgs_stored"]:
         fail("syncless parity run: a digest, or nothing stored")
+    check_soak_parity(parity_phase(
+        soak_config(PARITY_PEERS), SEED, SOAK_PARITY_ROUNDS,
+        soak_schedule(PARITY_PEERS, SEED)))
     one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
@@ -2123,6 +2385,19 @@ def main() -> int:
     if "args" not in captured:
         fail("syncless main path: K5 never ran against the staging")
     rows.append(check_syncless_intake(captured.pop("args"), REPS))
+    # The soak community, its new kernel call shapes captured from its
+    # rounds (the last timed round's are checked and timed after it).
+    # The coverage that must grow is the founder's first grant's (its
+    # clock claims 2 for its identity, 3 for this one).
+    soak = soak_config(N_PEERS)
+    with SoakCapture(soak) as cap:
+        mains["soak"] = main_phase(
+            soak, "soak", SOAK_PATH, SEED, SOAK_WARMUP, SOAK_ROUNDS,
+            soak_schedule(N_PEERS, SEED),
+            (soak.founder, 3, 0xF0, int(soak_roles(N_PEERS, SEED)[
+                "grantees"][0])),
+            channels=SOAK_CHANNELS)
+    rows += check_soak_kernels(cap, REPS)
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

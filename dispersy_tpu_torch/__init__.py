@@ -10,10 +10,12 @@ plain PyTorch version, a CUDA tensor its hand-written kernel
 
 from dispersy_tpu_torch.config import CommunityConfig
 from dispersy_tpu_torch.engine import (coverage, create_messages,
-                                       multi_step, seed_overlay, step)
+                                       create_signature_request, multi_step,
+                                       seed_overlay, step)
 from dispersy_tpu_torch.exceptions import ConfigError, KernelError
 from dispersy_tpu_torch.state import PeerState, init_state
 
 __all__ = ["CommunityConfig", "ConfigError", "KernelError", "PeerState",
-           "coverage", "create_messages", "init_state", "multi_step",
+           "coverage", "create_messages", "create_signature_request",
+           "init_state", "multi_step",
            "seed_overlay", "step"]

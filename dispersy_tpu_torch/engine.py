@@ -5,29 +5,38 @@ legacy-store and byte-diet rounds of ``dispersy_tpu/engine.py``).
 JAX package's order (its phase markers are kept below): churn, walker
 send with the Bloom claim, push forwarding, request delivery, request
 processing and the tracker fast path, puncture, response processing, the
-sync responder, combined intake through the store merge, the forward
-buffer, wrap-up.  Every random choice is a counter hash (:mod:`ops.rng`),
-so the port equals ``dispersy_tpu.engine.step`` on every leaf.
+signature exchange, the sync responder, the delay pen's four request
+channels, combined intake through the store merge, the forward buffer and
+the pen's rebuild, wrap-up.  Every random choice is a counter hash
+(:mod:`ops.rng`), so the port equals ``dispersy_tpu.engine.step`` on
+every leaf.
 
-The slice covers configs whose planes and protocol feature flags sit at
-their defaults (:func:`check_slice`) except the permission engine: the
-Timeline (authorize / revoke with delegation chains, DynamicResolution
-flips, undo-own and undo-other, destroy, and the retroactive re-walk
-after a revoke) on the legacy ring, LastSync keep-last-k, and per-meta
-priorities and DESC sync; the hardened intake: double-sign
-conviction with malicious-proof gossip (a bounded blacklist, the
-eyewitness's own proof record, convicted members ejected from the
-candidate table), the identity gate and sequence-numbered metas taken
-strictly in order; and the chaos planes: the fault model (the
-Gilbert–Elliott channel, partitions, duplication, corruption, flooders,
-the health sentinels), the recovery pass, overload's token buckets and
-priority admission, and the parallel plane (the shard-local ragged
-exchange with its capped push buckets, :func:`_deliver`); the telemetry
-plane (the packed per-round row, its device ring, the histograms and the
-flight recorder) and the dissemination-tracing plane (per tracked record
-and peer, the first arrival, its channel and the duplicates; coverage
-latches); symmetric-NAT members (``p_symmetric``).  Any other config
-raises ``NotImplementedError`` before a round starts.  The store is the
+The slice covers every feature of one community (:func:`check_slice`
+refuses several): the permission engine -- the Timeline (authorize /
+revoke with delegation chains, DynamicResolution flips, undo-own and
+undo-other, destroy, and the retroactive re-walk after a revoke) on the
+legacy ring, LastSync keep-last-k, and per-meta priorities and DESC
+sync; the hardened intake: double-sign conviction with malicious-proof
+gossip (a bounded blacklist, the eyewitness's own proof record,
+convicted members ejected from the candidate table), the identity gate
+and sequence-numbered metas taken strictly in order; the delay pen: a
+record refused only for a missing permit, a sequence gap, an unknown
+author or (an undo-other) a missing target parks, and asks its deliverer
+for the proof, the missing range, the target or the identity
+(:func:`_pen_channel`), whose replies join the round's intake;
+double-signed metas (``create_signature_request``, the countersign
+exchange, both signers' permits and identities) and direct metas
+(received and counted, never stored or forwarded); the chaos planes:
+the fault model (the Gilbert–Elliott channel, partitions, duplication,
+corruption, flooders, the health sentinels), the recovery pass,
+overload's token buckets and priority admission, and the parallel plane
+(the shard-local ragged exchange with its capped push buckets,
+:func:`_deliver`); the telemetry plane (the packed per-round row, its
+device ring, the histograms and the flight recorder) and the
+dissemination-tracing plane (per tracked record and peer, the first
+arrival, its channel and the duplicates; coverage latches);
+symmetric-NAT members (``p_symmetric``).  Several communities raise
+``NotImplementedError`` before a round starts.  The store is the
 legacy ring (merged every round) or the byte-diet store (``store.staging
 > 0``, :mod:`storediet`): arrivals land in a staging buffer, and with the
 sync exchange the Bloom claim is a persistent digest salted with an
@@ -67,9 +76,14 @@ from dispersy_tpu_torch.config import (CONTROL_PRIORITY, EMPTY_META,
                                        META_IDENTITY, META_MALICIOUS,
                                        META_REVOKE,
                                        META_UNDO_OTHER, META_UNDO_OWN,
-                                       NO_PEER, PERM_AUTHORIZE, PERM_PERMIT,
+                                       MISSING_IDENTITY_BYTES,
+                                       MISSING_MSG_BYTES, MISSING_PROOF_BYTES,
+                                       MISSING_SEQ_BYTES, NO_PEER,
+                                       PERM_AUTHORIZE, PERM_PERMIT,
                                        PERM_REVOKE, PERM_UNDO, PUNCTURE_BYTES,
                                        PUNCTURE_REQUEST_BYTES, RECORD_BYTES,
+                                       SIGNATURE_REQUEST_BYTES,
+                                       SIGNATURE_RESPONSE_BYTES,
                                        CommunityConfig, user_perm_mask)
 from dispersy_tpu_torch.faults import (HEALTH_BLOOM_SAT,
                                        HEALTH_COUNTER_WRAP,
@@ -99,6 +113,16 @@ _LOSS_PUNCTURE_REQ = 2 << 16
 _LOSS_PUNCTURE = 3 << 16
 _LOSS_SYNC = 4 << 16
 _LOSS_FORWARD = 5 << 16
+_LOSS_SIGREQ = 6 << 16
+_LOSS_SIGRESP = 7 << 16
+_LOSS_PROOF_REQ = 8 << 16
+_LOSS_PROOF_RESP = 9 << 16
+_LOSS_SEQ_REQ = 10 << 16
+_LOSS_SEQ_RESP = 11 << 16
+_LOSS_MSG_REQ = 12 << 16
+_LOSS_MSG_RESP = 13 << 16
+_LOSS_ID_REQ = 14 << 16
+_LOSS_ID_RESP = 15 << 16
 _TRACKER_SALT = 1 << 15
 _TRACKER_INTRO_SALT = 1 << 20
 # The chaos harness: flood sends draw loss from their own block;
@@ -120,26 +144,12 @@ _RECOVERY_COUNTERS = ("recov_soft", "recov_backoff", "recov_quarantine")
 
 
 def check_slice(cfg: CommunityConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
-    is off the ported slice: several communities, the delay pen and the
-    four request channels that ride it, double-signed metas and direct
-    metas."""
-    off = [
-        ("communities", bool(cfg.communities)),
-        ("delay_inbox", cfg.delay_inbox > 0),
-        ("proof_requests", cfg.proof_requests),
-        ("seq_requests", cfg.seq_requests),
-        ("msg_requests", cfg.msg_requests),
-        ("identity_requests", cfg.identity_requests),
-        ("double_meta_mask", bool(cfg.double_meta_mask)),
-        ("direct_meta_mask", bool(cfg.direct_meta_mask)),
-    ]
-    for name, is_off in off:
-        if is_off:
-            raise NotImplementedError(
-                f"CommunityConfig.{name} is off the ported slice (one "
-                "community; no delay pen or request channels, "
-                "double-signed or direct metas)")
+    """Raise ``NotImplementedError`` when ``cfg`` is off the ported slice:
+    several communities."""
+    if cfg.communities:
+        raise NotImplementedError(
+            "CommunityConfig.communities is off the ported slice (one "
+            "community)")
 
 
 class _EffFaults(NamedTuple):
@@ -234,6 +244,113 @@ def _deliver(cfg: CommunityConfig, dst, cols, valid, n_peers: int,
     return rd.delivery, (rd.shed if budget > 0 else None)
 
 
+class _RoundCtx(NamedTuple):
+    """What a pen channel reads of the round: the config, the fault
+    knobs and channel states, the counter stream, the participants, the
+    hard-killed mask (None without a timeline) and the counters."""
+    cfg: CommunityConfig
+    kn: _EffFaults
+    ge_bad: torch.Tensor
+    seed: torch.Tensor
+    rnd: torch.Tensor
+    idx: torch.Tensor
+    act: torch.Tensor
+    killed: torch.Tensor | None
+    acc: dict
+
+
+class _Seg(NamedTuple):
+    """One segment of the round's intake batch: its record columns and
+    validity [N, W], each entry's deliverer (int32, None without the
+    pen) and the segment's lineage channel."""
+    gt: torch.Tensor
+    member: torch.Tensor
+    meta: torch.Tensor
+    payload: torch.Tensor
+    aux: torch.Tensor
+    ok: torch.Tensor
+    src: torch.Tensor | None
+    chan: int
+
+
+class _Replies(NamedTuple):
+    """One pen channel's replies as intake columns [N, D * budget]."""
+    cols: tuple          # (gt, member, meta, payload, aux) in store dtypes
+    ok: torch.Tensor     # bool: a reply arrived
+    src: torch.Tensor    # int32: the serving peer
+    bup: torch.Tensor    # int64 [N] bytes each peer sent on the channel
+    bdown: torch.Tensor  # int64 [N] bytes each peer received
+    arrived: torch.Tensor  # bool [N] a request reached the peer
+
+
+def _pen_channel(rt: _RoundCtx, stc: st.StoreCols, dl_src, want, req_cols,
+                 serve, budget: int, from_end: bool, salt_req: int,
+                 salt_resp: int, req_bytes: int, name: str) -> _Replies:
+    """One request/serve/receipt round trip of the delay pen, shared by
+    the proof, sequence, message and identity channels.  Each pen slot
+    where ``want`` holds sends ``req_cols`` (u32 or u8 [N, D]) to its
+    deliverer ``dl_src``; a server takes up to ``proof_inbox`` requests,
+    and for request slot ``s`` serves the up-to-``budget`` store rows of
+    ``serve(inbox_cols, s)`` (bool [N, M]) in store order, or from the
+    ring's end with ``from_end`` -- one K4 compaction of the six columns
+    a slot.  The requester picks its reply up by receipt.  Counts
+    ``{name}_requests`` at the server and ``{name}_records`` at the
+    requester."""
+    cfg, acc, idx, act = rt.cfg, rt.acc, rt.idx, rt.act
+    n, dd = dl_src.shape
+    dev = dl_src.device
+    lost = _lost(rt.kn, rt.ge_bad, rt.seed, rt.rnd, idx[:, None], salt_req,
+                 torch.arange(dd, device=dev)[None, :])
+    bup = want.sum(dim=1) * req_bytes
+    send = want & ~lost
+    if cfg.faults.partitions:
+        send = send & ~flt.partition_blocked(
+            idx[:, None].expand(n, dd), dl_src, cfg.faults.partitions)
+    rq, _ = _deliver(cfg, dl_src.reshape(-1),
+                     [c.reshape(-1) for c in req_cols], send.reshape(-1), n,
+                     cfg.proof_inbox)
+    q_ok = rq.inbox_valid & act[:, None]
+    if rt.killed is not None:
+        q_ok = q_ok & ~rt.killed[:, None]
+    acc[f"{name}_requests"] = q_ok.sum(dim=1)
+    acc["requests_dropped"] += rq.n_dropped
+    bdown = q_ok.sum(dim=1) * req_bytes
+    cols = [(stc.gt, EMPTY_U32), (stc.member, EMPTY_U32),
+            (stc.meta, EMPTY_META), (stc.payload, EMPTY_U32), (stc.aux, 0)]
+    outs = []
+    for s in range(cfg.proof_inbox):
+        m_s = serve(rq.inbox, s) & q_ok[:, s:s + 1]            # [N, M]
+        mi = m_s.to(torch.int32)
+        if from_end:
+            rank = torch.cumsum(mi.flip(1), dim=1).flip(1) - 1
+        else:
+            rank = torch.cumsum(mi, dim=1) - 1
+        slot = torch.where(m_s & (rank < budget), rank, budget)
+        outs.append(st.rank_compact_many(cols + [(m_s, False)], slot,
+                                         budget))
+    box = [torch.stack([bits(o[i]) for o in outs], dim=1)
+           for i in range(6)]                                   # [N, Pi, b]
+    bup = bup + box[5].sum(dim=(1, 2)) * RECORD_BYTES
+    # Pen slot (i, d)'s reply sits at edge_slot[i * D + d] of server
+    # dl_src[i, d]'s outbox (indices clamped before the gather).
+    src_flat = dl_src.reshape(-1).to(torch.int64).clamp(min=0)
+    eslot = rq.edge_slot.to(torch.int64).clamp(min=0)
+    got = ((rq.edge_slot >= 0) & q_ok[src_flat, eslot]).reshape(n, dd)
+
+    def pick(col):
+        return col[src_flat, eslot].reshape(n, dd * budget)
+    rcols = tuple(unbits(pick(b), c.dtype) for b, (c, _) in zip(box, cols))
+    resp_lost = _lost(rt.kn, rt.ge_bad, rt.seed, rt.rnd, idx[:, None],
+                      salt_resp,
+                      torch.arange(dd * budget, device=dev)[None, :])
+    ok = (pick(box[5]) & got.repeat_interleave(budget, dim=1)
+          & act[:, None] & ~resp_lost)
+    acc[f"{name}_records"] = ok.sum(dim=1)
+    bdown = bdown + ok.sum(dim=1) * RECORD_BYTES
+    return _Replies(rcols, ok, dl_src.repeat_interleave(budget, dim=1), bup,
+                    bdown, rq.inbox_valid.any(dim=1))
+
+
 def _blank_tab(tab: cand.CandTable, m: torch.Tensor) -> cand.CandTable:
     """``tab`` with the slots (or rows, for a [N, 1] mask) of ``m``
     emptied."""
@@ -249,17 +366,26 @@ def _wipe_store_cols(m1: torch.Tensor, stc: st.StoreCols) -> st.StoreCols:
     return st.StoreCols(*(_fill(m1, c, f) for c, f in zip(stc, _STORE_FILLS)))
 
 
-def _rebirth_wipe(mask, tab, stc, fwd, auth, mal, global_time, session,
-                  wipe_store: bool = True):
+_DLY_FILLS = (EMPTY_U32, EMPTY_U32, EMPTY_META, EMPTY_U32, 0, 0, NO_PEER)
+
+
+def _rebirth_wipe(mask, tab, stc, fwd, dly, auth, sig, mal, global_time,
+                  session, wipe_store: bool = True):
     """The wiped-disk rebirth of the masked peers, shared by churn and the
     quarantine escalation: empty candidate table, store (unless the
-    caller wiped it already), forward buffer, auth table and convictions;
-    the clock back to 1 and the session bumped."""
+    caller wiped it already), forward buffer, delay pen, auth table,
+    signature cache and convictions; the clock back to 1 and the session
+    bumped."""
     m1 = mask[:, None]
     tab = _blank_tab(tab, m1)
     if wipe_store:
         stc = _wipe_store_cols(m1, stc)
     fwd = tuple(_fill(m1, c, st.empty_of(c.dtype)) for c in fwd)
+    # The pen and the signature cache live in the process's memory.
+    dly = tuple(_fill(m1, c, f) for c, f in zip(dly, _DLY_FILLS))
+    if sig[0].shape[0]:
+        sig = (torch.where(mask, NO_PEER, sig[0]),) + tuple(
+            _fill(mask, c, 0) for c in sig[1:])
     # The auth table is folded from the (wiped) store: it wipes too.
     auth = tl.AuthTable(
         member=_fill(m1, auth.member, EMPTY_U32),
@@ -269,7 +395,7 @@ def _rebirth_wipe(mask, tab, stc, fwd, auth, mal, global_time, session,
     mal = _fill(m1, mal, EMPTY_U32)
     global_time = torch.where(mask, 1, global_time)
     session = session + mask.to(torch.int64)
-    return tab, stc, fwd, auth, mal, global_time, session
+    return tab, stc, fwd, dly, auth, sig, mal, global_time, session
 
 
 def _fold_gt(own, seen, seen_valid, rng_range: int) -> torch.Tensor:
@@ -458,13 +584,15 @@ class _Checked(NamedTuple):
     accept: torch.Tensor          # bool[N, B]
     flags: torch.Tensor           # u8[N, B] the batch's pre-undone flags
     is_undo: torch.Tensor         # bool[N, B]
+    parkable: torch.Tensor | None  # bool[N, B] may park (None: no pen)
     fold_lost: torch.Tensor       # int64[N] rows dropped or evicted
     retro_trigger: torch.Tensor   # bool 0-dim: a fresh revoke or eviction
 
 
 def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
                      batch: st.StoreCols, cfg: CommunityConfig, in_ok,
-                     in_store, dup_in_batch, founder) -> _Checked:
+                     in_store, dup_in_batch, founder,
+                     is_dbl=None) -> _Checked:
     """The receive pipeline's permission check over the [N, B] batch,
     against the receiver's store and table (the JAX package's intake
     check block).  Control records carry their own authority rule: the
@@ -475,7 +603,9 @@ def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
     grant and a record it permits can land in one batch.  Then
     undo-other needs the UNDO bit on the target's stored meta, a flip the
     AUTHORIZE bit on its meta, and a protected user record (LinearResolution
-    at its gt, replayed from the stored and this batch's flips) a permit.
+    at its gt, replayed from the stored and this batch's flips) a permit,
+    for a double-signed record (``is_dbl``) both signers' permits.  With
+    the pen, ``parkable`` marks the entries that may wait in it.
     ``founder`` is a u32 [N, 1] column."""
     member, meta, payload, gt, aux = (batch.member, batch.meta, batch.payload,
                                       batch.gt, batch.aux)
@@ -516,8 +646,20 @@ def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
             wide(intake.flip_best_batch(flip_ok, payload, gt, aux, meta,
                                         gt))))
     protected = _protected_now(meta, cfg, best)
+    if cfg.double_meta_mask & (cfg.protected_meta_mask
+                               | cfg.dynamic_meta_mask):
+        # The countersigner (aux) needs the permit too.
+        permitted = permitted & torch.where(
+            is_dbl, tl.check(auth, aux, meta, gt, founder), True)
     accept = in_ok & torch.where(is_ctrl, ctrl_ok,
                                  torch.where(protected, permitted, True))
+    parkable = None
+    if cfg.delay_enabled:
+        # A user record may park; of the control records only a refused
+        # undo-other, under msg_requests (its target may be in flight).
+        parkable = ~is_ctrl
+        if cfg.msg_requests:
+            parkable = parkable | (is_undo_other & in_ok & ~accept)
     # Arrivals whose undo is already stored come in pre-undone.
     pre_undone = (meta < 32) & intake.undo_marked(stc, member, gt)
     flags = torch.where(pre_undone, FLAG_UNDONE, 0).to(torch.uint8)
@@ -525,7 +667,7 @@ def _timeline_intake(auth: tl.AuthTable, stc: st.StoreCols,
     lost = (fr.n_dropped + fr2.n_dropped + evicted).to(torch.int64)
     trigger = ((fresh0 & is_rev & (ctrl_ok0 | deleg_ok)).any()
                | (evicted > 0).any())
-    return _Checked(auth, accept, flags, is_undo, lost, trigger)
+    return _Checked(auth, accept, flags, is_undo, parkable, lost, trigger)
 
 
 def _retro_pass(auth: tl.AuthTable, stc: st.StoreCols, cfg: CommunityConfig,
@@ -558,6 +700,13 @@ def _retro_pass(auth: tl.AuthTable, stc: st.StoreCols, cfg: CommunityConfig,
             if cfg.dynamic_meta_mask else None)
     protected = _protected_now(stc.meta, cfg, best)
     permitted = tl.check(auth, stc.member, stc.meta, stc.gt, fcol)
+    if cfg.double_meta_mask & (cfg.protected_meta_mask
+                               | cfg.dynamic_meta_mask):
+        m = stc.meta.to(torch.int64)
+        is_dbl = ((((cfg.double_meta_mask >> m.clamp(max=31)) & 1) == 1)
+                  & (m < cfg.n_meta))
+        permitted = permitted & torch.where(
+            is_dbl, tl.check(auth, stc.aux, stc.meta, stc.gt, fcol), True)
     r2 = st.store_remove(stc, protected & ~permitted)
     stc = r2.store
     undo_tmeta = intake.stored_meta_of(stc, stc.payload, stc.aux)
@@ -840,6 +989,12 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     epoch = state.epoch
     fwd = (state.fwd_gt, state.fwd_member, state.fwd_meta,
            state.fwd_payload, state.fwd_aux)
+    # The delay pen (zero-width without it) and the one-slot signature
+    # cache (zero-length without double-signed metas).
+    dly = (state.dly_gt, state.dly_member, state.dly_meta,
+           state.dly_payload, state.dly_aux, state.dly_since, state.dly_src)
+    sig = (state.sig_target, state.sig_meta, state.sig_payload,
+           state.sig_gt, state.sig_since)
     global_time, session = wide(state.global_time), wide(state.session)
     loaded = state.loaded
     auth = _auth(state)
@@ -852,8 +1007,9 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             rng.rand_uniform(seed, rnd, idx, rng.P_CHURN)
             < _f32(cfg.churn_rate, dev))
         m1 = reborn[:, None]
-        tab, stc, fwd, auth, mal, global_time, session = _rebirth_wipe(
-            reborn, tab, stc, fwd, auth, mal, global_time, session)
+        (tab, stc, fwd, dly, auth, sig, mal, global_time,
+         session) = _rebirth_wipe(reborn, tab, stc, fwd, dly, auth, sig,
+                                  mal, global_time, session)
         if diet:
             sta = _wipe_store_cols(m1, sta)
         if dig is not None:
@@ -951,7 +1107,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         # Edge-list segments: the real push fan-out, then the flooders'
         # junk blast.  One delivery serves both, so junk competes for the
         # same bounded inboxes (the saturation attack).
-        e_dst, e_valid, e_junk = [], [], []
+        e_dst, e_valid, e_junk, e_src = [], [], [], []
+        ph_src = None
         e_cols: list[list] = [[] for _ in range(5)]
         if ov.enabled:
             # Per-sender token buckets: this round's credit is spent by
@@ -997,6 +1154,11 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             e_valid.append(push_valid.reshape(-1))
             for e_col, col in zip(e_cols, fwd[:4] + (cast(fwd[4], aux_dt),)):
                 e_col.append(_bcast_edges(col, n, f, c))
+            if cfg.delay_enabled:
+                # The pen keeps each record's deliverer (the target of
+                # its missing-proof request): pushes carry their sender.
+                e_src.append(narrow(idx[:, None].expand(n, f * c).reshape(
+                    -1)))
             e_junk.append(torch.zeros(n * f * c, dtype=torch.bool,
                                       device=dev))
         if fm.flood_enabled:
@@ -1034,11 +1196,17 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             e_cols[2].append((junk_field(3) & 0xFF).to(torch.uint8))
             e_cols[3].append(narrow(junk_field(4)))               # payload
             e_cols[4].append(narrow(junk_field(5)))               # aux
+            if cfg.delay_enabled:
+                e_src.append(narrow(fsrc[:, None].expand(fl, ff).reshape(
+                    -1)))
             e_junk.append(torch.ones(fl * ff, dtype=torch.bool, device=dev))
             # The flooder's NIC sends every blast, pre-loss.
             bup = bup.index_add(0, fsrc, alive_f * (ff * RECORD_BYTES))
         push_cols = [unbits(torch.cat([bits(x) for x in cl]), cl[0].dtype)
                      for cl in e_cols]
+        if cfg.delay_enabled:
+            push_cols.append(unbits(torch.cat([bits(x) for x in e_src]),
+                                    torch.uint32))
         if fm.flood_enabled:
             push_cols.append(torch.cat(e_junk))
         if ov.enabled:
@@ -1102,6 +1270,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                 bad = bad | (ph_ok & (cu < _f32(kn.corrupt_rate, dev)))
             acc["msgs_corrupt_dropped"] += bad.sum(dim=1)
             ph_ok = ph_ok & ~bad
+        if cfg.delay_enabled:
+            ph_src = torch.where(ph_ok, bits(push.inbox[5]), NO_PEER)
         if kn.dup_on:
             # A clean delivered push arrives twice (the copy joins the
             # batch's tail).
@@ -1116,6 +1286,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         ph_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
         ph_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
         ph_dup_ok = ph_ok
+        ph_src = torch.zeros((n, 0), dtype=torch.int32, device=dev)
 
     req_lost = _lost(kn, ge_bad, seed, rnd, idx, _LOSS_REQUEST, 0)
     bup = bup + (act & (target != NO_PEER)) * req_bytes
@@ -1349,6 +1520,102 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             walked_ok & got_resp, wide(walk_streak) + 1,
             torch.where(failed, 0, wide(walk_streak))))
 
+    # ---- phase 3s: the signature request and response -----------------
+    # A drafted double-signed record rides to its counterparty once, in
+    # the round it was drafted; the counterparty agrees (the countersign
+    # draw, and for a meta LinearResolution at the draft's gt both
+    # signers' permits in its own table) and the countersigned record
+    # rides back by receipt into this round's intake.  The cache frees on
+    # completion and expires after ``sig_timeout_rounds``.
+    sg_target, sg_meta, sg_payload, sg_gt, sg_since = sig
+    if cfg.double_meta_mask:
+        s_sz = cfg.sig_inbox
+        sending = act & (sg_target != NO_PEER) & (wide(sg_since) == rnd)
+        if tline:
+            sending = sending & ~killed
+        srq_lost = _lost(kn, ge_bad, seed, rnd, idx, _LOSS_SIGREQ, 0)
+        bup = bup + sending * SIGNATURE_REQUEST_BYTES
+        sig_send_ok = sending & ~srq_lost
+        if fm.partitions:
+            sig_send_ok = sig_send_ok & ~flt.partition_blocked(
+                idx, sg_target, fm.partitions)
+        sreq, _ = _deliver(
+            cfg, torch.where(sending, sg_target, NO_PEER).to(torch.int32),
+            [idx_u32, sg_meta, sg_payload, sg_gt], sig_send_ok, n, s_sz)
+        sq_src, sq_meta, sq_payload, sq_gt = sreq.inbox        # [N, S]
+        arrivals = arrivals | sreq.inbox_valid.any(dim=1)
+        # Trackers and hard-killed peers never countersign.
+        sq_ok = sreq.inbox_valid & act[:, None] & ~state.is_tracker[:, None]
+        if tline:
+            sq_ok = sq_ok & ~killed[:, None]
+        if cfg.countersign_rate >= 1.0:
+            agree = torch.ones((n, s_sz), dtype=torch.bool, device=dev)
+        elif cfg.countersign_rate <= 0.0:
+            agree = torch.zeros((n, s_sz), dtype=torch.bool, device=dev)
+        else:
+            agree = rng.rand_uniform(
+                seed, rnd, idx[:, None], rng.P_SIGN,
+                torch.arange(s_sz, device=dev)[None, :]) < _f32(
+                    cfg.countersign_rate, dev)
+        if tline and ((cfg.protected_meta_mask | cfg.dynamic_meta_mask)
+                      & cfg.double_meta_mask):
+            founder_b = _founder_col(cfg, dev)[:, None]
+            qm = wide(sq_meta)
+            shq = qm.clamp(max=31)
+            prot_q = (((cfg.protected_meta_mask >> shq) & 1) == 1) \
+                & (qm < cfg.n_meta)
+            if cfg.dynamic_meta_mask & cfg.double_meta_mask:
+                dyn_q = (((cfg.dynamic_meta_mask >> shq) & 1) == 1) \
+                    & (qm < cfg.n_meta)
+                best_q = wide(intake.flip_best(stc, sq_meta, sq_gt))
+                prot_q = torch.where(
+                    dyn_q, torch.where(best_q > 0, (best_q & 1) == 1,
+                                       prot_q), prot_q)
+            perm_q = (tl.check(auth, sq_src, sq_meta, sq_gt, founder_b)
+                      & tl.check(auth, idx_u32[:, None], sq_meta, sq_gt,
+                                 founder_b))
+            agree = agree & torch.where(prot_q, perm_q, True)
+        countersign = sq_ok & agree
+        n_sq = sq_ok.sum(dim=1)
+        n_cs = countersign.sum(dim=1)
+        bdown = bdown + n_sq * SIGNATURE_REQUEST_BYTES
+        bup = bup + n_cs * SIGNATURE_RESPONSE_BYTES
+        # The response is picked up by receipt at the author.
+        tgt_a = torch.where(sending, sg_target, 0).to(torch.int64).clamp(
+            min=0)
+        slot_a = sreq.edge_slot.to(torch.int64).clamp(min=0)
+        got_sig = (sreq.edge_slot >= 0) & countersign[tgt_a, slot_a]
+        srs_lost = _lost(kn, ge_bad, seed, rnd, idx, _LOSS_SIGRESP, 0)
+        completed = sending & got_sig & ~srs_lost
+        bdown = bdown + completed * SIGNATURE_RESPONSE_BYTES
+        expired = (alive & (sg_target != NO_PEER) & ~completed
+                   & (((rnd - wide(sg_since)) & MASK)
+                      >= cfg.sig_timeout_rounds))
+        clear = completed | expired
+        sig = (torch.where(clear, NO_PEER, sg_target),) + tuple(
+            _fill(clear, c, 0) for c in (sg_meta, sg_payload, sg_gt,
+                                         sg_since))
+        acc["sig_signed"] = n_cs
+        acc["sig_done"] = completed.to(torch.int64)
+        acc["sig_expired"] = expired.to(torch.int64)
+        acc["requests_dropped"] += sreq.n_dropped
+        # The completed record, one intake column (the cache's u32 meta
+        # narrows to the record's u8 column; the countersigner in aux).
+        db_gt = _fill(~completed, sg_gt, EMPTY_U32)[:, None]
+        db_member = idx_u32[:, None]
+        db_meta = cast(sg_meta, torch.uint8)[:, None]
+        db_payload = sg_payload[:, None]
+        db_aux = narrow(torch.where(sg_target == NO_PEER, 0,
+                                    sg_target.to(torch.int64)))[:, None]
+        db_ok = completed[:, None]
+        db_src = torch.where(db_ok, sg_target[:, None], NO_PEER)
+    else:
+        d0 = zeros((n, 0), torch.uint32, dev)
+        db_gt = db_member = db_payload = db_aux = d0
+        db_meta = torch.zeros((n, 0), dtype=torch.uint8, device=dev)
+        db_ok = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+        db_src = torch.zeros((n, 0), dtype=torch.int32, device=dev)
+
     # ---- phase 2b/5: sync responder ------------------------------------
     # Per request slot the responder fills an outbox of up to
     # `response_budget` records the requester's bloom lacks, in store
@@ -1464,23 +1731,118 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             sy_dup_ok = sy_ok & (du < _f32(kn.dup_rate, dev))
             bdown = bdown + sy_dup_ok.sum(dim=1) * RECORD_BYTES
 
-    # ---- phase 5: combined intake (sync pull + push) -> store ----------
-    # One batch per round, sync records first, then pushed records, in
-    # delivery order, then (duplication) the duplicated copies of both.
-    # The batch's aux column is u32 (a u16 store aux is zero-extended, as
-    # the JAX package's concatenation promotes it).
-    n_seg = 4 if kn.dup_on else 2
+    # ---- phases 4p, 4s, 4m, 4i: the pen's four request channels -------
+    # Each parked record asks its deliverer for what it waits on -- the
+    # proof (grants naming its author), the missing sequence range, the
+    # undo-other's target, or its author's identity -- and the replies
+    # ride back by receipt into this round's intake (:func:`_pen_channel`).
+    dl_gt, dl_member, dl_meta, dl_payload, dl_aux, dl_since, dl_src = dly
+    dl_ok = (bits(dl_gt) != -1) & act[:, None]
+    pen_live = dl_ok & (dl_src != NO_PEER)
+    rt = _RoundCtx(cfg, kn, ge_bad, seed, rnd, idx, act,
+                   killed if tline else None, acc)
+    replies = []                      # one _Replies per channel
+    if cfg.proof_requests:
+        # The proof_budget newest stored grants and revokes naming the
+        # author, ranked from the ring's end.
+        is_proof_row = ((stc.meta == META_AUTHORIZE)
+                        | (stc.meta == META_REVOKE))
+        ch = _pen_channel(
+            rt, stc, dl_src, pen_live, [dl_member],
+            lambda q, s: is_proof_row & (bits(stc.payload)
+                                         == bits(q[0][:, s:s + 1])),
+            cfg.proof_budget, True, _LOSS_PROOF_REQ, _LOSS_PROOF_RESP,
+            MISSING_PROOF_BYTES, "proof")
+        replies.append(ch)
+    if cfg.seq_requests:
+        # The range [stored max + 1, gap - 1] of a parked sequenced
+        # record, served ascending so a whole reply chains in one batch.
+        dm = dl_meta.to(torch.int64)
+        dl_is_seq = ((((cfg.seq_meta_mask >> dm.clamp(max=31)) & 1) == 1)
+                     & (dm < cfg.n_meta))
+        sq_low = (wide(intake.seq_stored_max(stc, dl_member, dl_meta))
+                  + 1) & MASK
+        sq_high = (wide(dl_aux) - 1) & MASK
+        live_rows = bits(stc.gt) != -1
+        s_aux = wide(stc.aux)
 
-    def cat(a, b_):
-        return unbits(torch.cat([bits(a), bits(b_)] * (n_seg // 2), dim=1),
-                      a.dtype)
-    in_gt, in_member, in_meta, in_payload = (
-        cat(a, b_) for a, b_ in ((sy_gt, ph_gt), (sy_member, ph_member),
-                                 (sy_meta, ph_meta),
-                                 (sy_payload, ph_payload)))
-    in_aux = cat(cast(sy_aux, torch.uint32), cast(ph_aux, torch.uint32))
-    in_ok = torch.cat([sy_ok, ph_ok]
-                      + ([sy_dup_ok, ph_dup_ok] if kn.dup_on else []), dim=1)
+        def seq_serve(q, s):
+            return (live_rows & (bits(stc.member) == bits(q[0][:, s:s + 1]))
+                    & (stc.meta == q[1][:, s:s + 1])
+                    & (s_aux >= wide(q[2][:, s:s + 1]))
+                    & (s_aux <= wide(q[3][:, s:s + 1])))
+        ch = _pen_channel(
+            rt, stc, dl_src, pen_live & dl_is_seq & (sq_low <= sq_high),
+            [dl_member, dl_meta, narrow(sq_low), narrow(sq_high)],
+            seq_serve, cfg.proof_budget, False, _LOSS_SEQ_REQ,
+            _LOSS_SEQ_RESP, MISSING_SEQ_BYTES, "seq")
+        replies.append(ch)
+    if cfg.msg_requests:
+        # The stored user record an undo-other names, by (member, gt).
+        user_rows = (bits(stc.gt) != -1) & (stc.meta < 32)
+        ch = _pen_channel(
+            rt, stc, dl_src, pen_live & (dl_meta == META_UNDO_OTHER),
+            [dl_payload, dl_aux],
+            lambda q, s: (user_rows
+                          & (bits(stc.member) == bits(q[0][:, s:s + 1]))
+                          & (bits(stc.gt) == bits(q[1][:, s:s + 1]))),
+            1, False, _LOSS_MSG_REQ, _LOSS_MSG_RESP, MISSING_MSG_BYTES,
+            "mm")
+        replies.append(ch)
+    if cfg.identity_requests:
+        # The author's dispersy-identity record.
+        id_rows = stc.meta == META_IDENTITY
+        ch = _pen_channel(
+            rt, stc, dl_src,
+            pen_live & (dl_meta < cfg.n_meta)
+            & ~intake.identity_stored(stc, dl_member),
+            [dl_member],
+            lambda q, s: id_rows & (bits(stc.member)
+                                    == bits(q[0][:, s:s + 1])),
+            1, False, _LOSS_ID_REQ, _LOSS_ID_RESP, MISSING_IDENTITY_BYTES,
+            "id")
+        replies.append(ch)
+    for ch in replies:
+        bup, bdown = bup + ch.bup, bdown + ch.bdown
+        arrivals = arrivals | ch.arrived
+
+    # ---- phase 5: combined intake -> store ------------------------------
+    # One batch per round, in this order: the pen's waiting records, sync
+    # pulls, pushes, this round's double-signed completions, the proof,
+    # sequence, message and identity replies, then (duplication) the
+    # duplicated sync pulls and pushes.  The batch's aux column is u32 (a
+    # u16 store aux is zero-extended, as the JAX package's concatenation
+    # promotes it).  Each segment carries its lineage channel (sync or
+    # push, 0 for the rest) and, with the pen, each entry its delivery
+    # round and its deliverer.
+    sy_src = torch.where(sy_ok, target[:, None], NO_PEER) if \
+        cfg.delay_enabled else None
+    sync_seg = _Seg(sy_gt, sy_member, sy_meta, sy_payload, sy_aux, sy_ok,
+                    sy_src, trp.CH_WALK_SYNC)
+    push_seg = _Seg(ph_gt, ph_member, ph_meta, ph_payload, ph_aux, ph_ok,
+                    ph_src, trp.CH_PUSH)
+    segs = ([_Seg(dl_gt, dl_member, dl_meta, dl_payload, dl_aux, dl_ok,
+                  dl_src, 0), sync_seg, push_seg,
+             _Seg(db_gt, db_member, db_meta, db_payload, db_aux, db_ok,
+                  db_src, 0)]
+            + [_Seg(*ch.cols, ch.ok, ch.src, 0) for ch in replies])
+    if kn.dup_on:
+        segs += [sync_seg._replace(ok=sy_dup_ok),
+                 push_seg._replace(ok=ph_dup_ok)]
+
+    def cat(field, dt):
+        return unbits(torch.cat([bits(cast(getattr(sg, field), dt))
+                                 for sg in segs], dim=1), dt)
+    in_gt, in_member, in_payload = (cat(f, torch.uint32)
+                                    for f in ("gt", "member", "payload"))
+    in_meta, in_aux = cat("meta", torch.uint8), cat("aux", torch.uint32)
+    in_ok = torch.cat([sg.ok for sg in segs], dim=1)
+    if cfg.delay_enabled:
+        # Pen entries keep their parking round and deliverer; everything
+        # else arrived now.
+        in_since = narrow(torch.cat([wide(dl_since), rnd.expand(
+            n, in_ok.shape[1] - dl_since.shape[1])], dim=1))
+        in_src = torch.cat([sg.src for sg in segs], dim=1)
     bb = in_gt.shape[1]
     fb = cfg.forward_buffer
     if bb > 0:
@@ -1490,6 +1852,18 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         if tline:
             # A hard-killed peer takes in nothing at all.
             in_ok = in_ok & ~killed[:, None]
+        is_dbl = None
+        if cfg.double_meta_mask:
+            # The structural signature check of a double-signed record
+            # (completed here or synced): its countersigner in aux is
+            # another, non-tracker member of the community.
+            im = in_meta.to(torch.int64)
+            is_dbl = ((((cfg.double_meta_mask >> im.clamp(max=31)) & 1) == 1)
+                      & (im < cfg.n_meta))
+            a_w = wide(in_aux)
+            dbl_ok = ((bits(in_aux) != bits(in_member)) & (a_w >= t)
+                      & (a_w < n))
+            in_ok = in_ok & torch.where(is_dbl, dbl_ok, True)
         if mal_on:
             # Double-sign conviction: an arrival matching a stored
             # record's (member, gt) but differing in content convicts its
@@ -1554,7 +1928,8 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         if tline:
             founder_col = _founder_col(cfg, dev)
             chk = _timeline_intake(auth, stc, batch, cfg, in_ok, in_store,
-                                   dup_in_batch, founder_col[:, None])
+                                   dup_in_batch, founder_col[:, None],
+                                   is_dbl)
             auth, accept = chk.auth, chk.accept
             batch = batch._replace(flags=chk.flags)
             acc["msgs_dropped"] += chk.fold_lost
@@ -1562,25 +1937,43 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             accept = in_ok
         if cfg.identity_required:
             accept = _identity_gate(cfg, stc, batch, accept)
-        if cfg.seq_meta_mask:
-            accept = accept & _seq_chain_ok(cfg, stc, batch, in_store,
-                                            accept)
+            if is_dbl is not None:
+                # A double-signed record needs its countersigner's
+                # identity too.
+                accept = accept & torch.where(
+                    is_dbl, intake.identity_stored(stc, in_aux), True)
+        accept, pen_slot, n_rej = _chain_and_park(
+            cfg, stc, batch, in_ok, in_store, dup_in_batch, accept,
+            chk.parkable if cfg.delay_enabled else None,
+            in_since if cfg.delay_enabled else None, rnd)
         if gated:
-            acc["msgs_rejected"] += (in_ok & ~accept).sum(dim=1)
-        fresh = accept & ~in_store & ~dup_in_batch           # [N, B]
+            acc["msgs_rejected"] += n_rej
+        accept_store = accept
+        if cfg.direct_meta_mask:
+            # A direct record is counted on receipt, never stored and
+            # never forwarded.
+            im = in_meta.to(torch.int64)
+            is_direct = ((((cfg.direct_meta_mask >> im.clamp(max=31)) & 1)
+                          == 1) & (im < cfg.n_meta))
+            got_direct = accept & is_direct
+            acc["msgs_direct"] = got_direct.sum(dim=1)
+            accept_store = accept & ~is_direct
+        fresh = accept_store & ~in_store & ~dup_in_batch     # [N, B]
+        # The per-meta counts: fresh stored records and direct receipts.
+        counted = fresh | got_direct if cfg.direct_meta_mask else fresh
         bucket = torch.where(in_meta.to(torch.int64) < cfg.n_meta,
                              in_meta.to(torch.int64), cfg.n_meta)
         acc["accepted_by_meta"] += (
             (bucket[:, :, None] == torch.arange(cfg.n_meta + 1,
                                                 device=dev)[None, None, :])
-            & fresh[:, :, None]).sum(dim=1)
+            & counted[:, :, None]).sum(dim=1)
         if diet:
             # Fresh records append to the staging buffer; duplicates and
             # staging overflow count as dropped.  msgs_stored counts at
             # compaction, when records enter the ring.
             stg = st.store_stage(sta, batch, new_mask=fresh)
             sta = stg.staging
-            acc["msgs_dropped"] += ((accept & ~fresh).sum(dim=1)
+            acc["msgs_dropped"] += ((accept_store & ~fresh).sum(dim=1)
                                     + stg.n_dropped)
             if dig is not None and (stagger or not compact_now):
                 # OR the landed arrivals into the digest so the next claim
@@ -1591,7 +1984,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                                           cfg.bloom_bits, cfg.bloom_hashes,
                                           salt=ep)
         else:
-            ins = st.store_insert(stc, batch, new_mask=accept,
+            ins = st.store_insert(stc, batch, new_mask=accept_store,
                                   history=cfg.history)
             stc = ins.store
             acc["msgs_stored"] += ins.n_inserted
@@ -1607,16 +2000,14 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
                 # the legacy ring.
                 landed = stg.landed if diet else fresh
                 chan_code = torch.cat([
-                    torch.full((c.shape[1],), code, dtype=torch.uint8,
-                               device=dev)
-                    for c, code in ((sy_gt, trp.CH_WALK_SYNC),
-                                    (ph_gt, trp.CH_PUSH))] * (n_seg // 2))
+                    torch.full((sg.gt.shape[1],), sg.chan, dtype=torch.uint8,
+                               device=dev) for sg in segs])
                 match = ((bits(in_member)[:, None, :]
                           == bits(state.trace_member)[None, :, None])
                          & (bits(in_gt)[:, None, :]
                             == bits(state.trace_gt)[None, :, None]))
                 tr_first, tr_chan, tr_dups, ubc, dbc = trc.slot_lineage(
-                    tr_first, tr_chan, tr_dups, match, landed, accept,
+                    tr_first, tr_chan, tr_dups, match, landed, accept_store,
                     chan_code, rnd + 1)
                 acc["trace_delivered"] += ubc
                 acc["trace_dup"] += dbc
@@ -1676,6 +2067,18 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
             put = st.count_valid(fwd[0]).to(torch.int64).clamp(max=fb - 1)
             fwd = tuple(_put_slot(cur, put, gossip_now, val)
                         for cur, val in zip(fwd, proof[:5]))
+        if cfg.delay_enabled:
+            # The pen rebuilt from this batch's parked records: waiting
+            # entries keep their parking round, new ones stamp this one.
+            dly = tuple(st.rank_compact_many(
+                [(in_gt, EMPTY_U32), (in_member, EMPTY_U32),
+                 (in_meta, EMPTY_META), (in_payload, EMPTY_U32),
+                 (in_aux, 0), (in_since, 0),
+                 (in_src.view(torch.uint32), EMPTY_U32)],
+                pen_slot, cfg.delay_inbox))
+            dly = dly[:6] + (dly[6].view(torch.int32),)
+            acc["msgs_delayed"] = ((pen_slot < cfg.delay_inbox)
+                                   & (wide(in_since) == rnd)).sum(dim=1)
         if tline:
             # The retro re-walk runs when a fresh revoke folded, or a
             # table eviction displaced a row, anywhere this round (the
@@ -1764,11 +2167,11 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         health_pre = wide(health)
         health = health_pre | hb
     if rc.enabled:
-        (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
-         backoff, repair_round, quar_until, esc) = _recovery_pass(
+        (tab, stc, sta, dig, fwd, dly, auth, sig, mal, global_time, session,
+         health, backoff, repair_round, quar_until, esc) = _recovery_pass(
             cfg, acc, seed, rnd, idx, health_pre, hb, tab, stc, sta, dig,
-            fwd, auth, mal, global_time, session, backoff, repair_round,
-            quar_until)
+            fwd, dly, auth, sig, mal, global_time, session, backoff,
+            repair_round, quar_until)
         if trace_on:
             # A quarantine is a wiped-disk rebirth: lineage wipes too.
             em = esc[:, None]
@@ -1867,6 +2270,10 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         fwd_payload=fwd[3], fwd_aux=fwd[4],
         auth_member=auth.member, auth_mask=auth.mask, auth_gt=auth.gt,
         auth_rev=auth.rev, auth_issuer=auth.issuer, mal_member=mal,
+        dly_gt=dly[0], dly_member=dly[1], dly_meta=dly[2],
+        dly_payload=dly[3], dly_aux=dly[4], dly_since=dly[5],
+        dly_src=dly[6], sig_target=sig[0], sig_meta=sig[1],
+        sig_payload=sig[2], sig_gt=sig[3], sig_since=sig[4],
         walk_streak=walk_streak, tele_row=tele_row, tele_ring=tele_ring,
         fr_ring=fr_ring, fr_pos=fr_pos, **trace_leaves,
         stats=stats, time=new_time, round_index=narrow(rnd + 1),
@@ -1875,7 +2282,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
 
 def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
                    prev: torch.Tensor, hb: torch.Tensor, tab, stc, sta, dig,
-                   fwd, auth, mal, global_time, session, backoff,
+                   fwd, dly, auth, sig, mal, global_time, session, backoff,
                    repair_round, quar_until):
     """The recovery plane's staged repair of the latched sentinels.  Bits
     latched in an earlier round (``prev``) are acted on and cleared;
@@ -1924,9 +2331,9 @@ def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
         rr = torch.where(rep, rpost, rr)
     quar = wide(quar_until)
     if rc.quarantine_rounds > 0:
-        tab, stc, fwd, auth, mal, global_time, session = _rebirth_wipe(
-            esc, tab, stc, fwd, auth, mal, global_time, session,
-            wipe_store=False)
+        (tab, stc, fwd, dly, auth, sig, mal, global_time,
+         session) = _rebirth_wipe(esc, tab, stc, fwd, dly, auth, sig, mal,
+                                  global_time, session, wipe_store=False)
         backoff = torch.where(esc, 0, backoff).to(torch.uint8)
         rr = torch.where(esc, 0, rr)
         quar = torch.where(esc, (rpost + rc.quarantine_rounds) & MASK, quar)
@@ -1948,8 +2355,45 @@ def _recovery_pass(cfg: CommunityConfig, acc: dict, seed, rnd, idx,
     acc["recov_quarantine"] += esc
     acc["recov_cleared"] += torch.stack(
         [(cleared >> b) & 1 for b in range(NUM_HEALTH_BITS)], dim=1)
-    return (tab, stc, sta, dig, fwd, auth, mal, global_time, session, health,
-            backoff, narrow(rr), narrow(quar), esc)
+    return (tab, stc, sta, dig, fwd, dly, auth, sig, mal, global_time,
+            session, health, backoff, narrow(rr), narrow(quar), esc)
+
+
+def _chain_and_park(cfg: CommunityConfig, stc: st.StoreCols,
+                    batch: st.StoreCols, in_ok, in_store, dup_in_batch,
+                    accept, parkable, in_since, rnd):
+    """The sequence chain and the pen's parking test over the [N, B]
+    batch: returns ``(accept, pen_slot, n_rejected)``, ``accept`` through
+    the chain, ``pen_slot`` each entry's pen slot (``delay_inbox`` for
+    none; None without the pen) and the int64 [N] count of entries
+    refused and not parked (None where no gate refuses).  With the pen, a ``parkable`` entry
+    that failed only the earlier gates, or with ``seq_requests`` only
+    the chain, that is not stored, not a duplicate of an earlier entry
+    and within its waiting time (from ``in_since``) parks, first fit;
+    overflow rejects."""
+    seq_ok = (_seq_chain_ok(cfg, stc, batch, in_store, accept)
+              if cfg.seq_meta_mask else None)
+    pen_slot, refused = None, None
+    if cfg.delay_enabled:
+        waiting = ~accept
+        if cfg.seq_requests:
+            waiting = waiting | (accept & ~seq_ok)
+        waiting = (waiting & in_ok & parkable & ~in_store & ~dup_in_batch
+                   & (((rnd - wide(in_since)) & MASK)
+                      < cfg.delay_timeout_rounds))
+        drank = torch.cumsum(waiting.to(torch.int32), dim=1) - 1
+        parked = waiting & (drank < cfg.delay_inbox)
+        pen_slot = torch.where(parked, drank, cfg.delay_inbox)
+        refused = ~parked
+    if seq_ok is not None:
+        accept = accept & seq_ok
+    if not (cfg.timeline_enabled or cfg.seq_meta_mask
+            or cfg.identity_required):
+        return accept, pen_slot, None
+    rejected = in_ok & ~accept
+    if refused is not None:
+        rejected = rejected & refused
+    return accept, pen_slot, rejected.sum(dim=1)
 
 
 def _identity_gate(cfg: CommunityConfig, stc: st.StoreCols,
@@ -2032,6 +2476,9 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     folds into the author's own table at once (with the retro re-walk on
     a revoke or an eviction), and an undo marks its target in the
     author's own store.
+
+    A double-signed meta is refused (only :func:`create_signature_request`
+    makes one); a direct meta's record is pushed and stored nowhere.
     """
     check_slice(cfg)
     control = meta in (META_AUTHORIZE, META_REVOKE, META_UNDO_OWN,
@@ -2041,6 +2488,12 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
             f"meta {meta:#x} is a permission control message; it needs "
             "timeline_enabled=True (declare a Linear/DynamicResolution "
             "meta or set the flag)")
+    if meta < cfg.n_meta and (cfg.double_meta_mask >> meta) & 1:
+        raise ValueError(
+            f"meta {meta} is DoubleMemberAuthentication -- use "
+            "create_signature_request, which obtains the counterparty's "
+            "signature instead of forging it")
+    is_direct = meta < cfg.n_meta and (cfg.direct_meta_mask >> meta) & 1
     n = cfg.n_peers
     dev = state.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -2068,7 +2521,8 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
         meta=torch.full((n, 1), meta, dtype=torch.uint8, device=dev),
         payload=narrow(payload)[:, None], aux=narrow(aux)[:, None],
         flags=torch.zeros((n, 1), dtype=torch.uint8, device=dev))
-    ins = st.store_insert(_store(state), new, author_mask[:, None],
+    store_mask = torch.zeros_like(author_mask) if is_direct else author_mask
+    ins = st.store_insert(_store(state), new, store_mask[:, None],
                           history=cfg.history)
     stc = ins.store
     leaves = {}
@@ -2081,7 +2535,7 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
         new_h = narrow(record_hash(new.member, new.gt, new.meta,
                                    new.payload))
         leaves["digest"] = bloom.digest_update(
-            state.digest, new_h, author_mask[:, None], cfg.bloom_bits,
+            state.digest, new_h, store_mask[:, None], cfg.bloom_bits,
             cfg.bloom_hashes, salt=salt)
     if cfg.timeline_enabled and meta in (META_AUTHORIZE, META_REVOKE):
         # The author's own table learns its grant / revoke now; a revoke
@@ -2129,7 +2583,7 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
         rpost = wide(state.round_index) + 1
         newly_any = torch.zeros(n, dtype=torch.bool, device=dev)
         for k in range(cfg.trace.tracked_slots):
-            m_k = (author_mask & (idx == wide(state.trace_member[k]))
+            m_k = (store_mask & (idx == wide(state.trace_member[k]))
                    & ((gt_new & MASK) == wide(state.trace_gt[k]))
                    & (first[:, k] == 0))
             first[:, k] = torch.where(m_k, rpost, first[:, k])
@@ -2153,6 +2607,56 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
             **stat_leaves,
             **{k: narrow(wide(getattr(state.stats, k)) + v)
                for k, v in stats.items()}))
+
+
+def create_signature_request(state: PeerState, cfg: CommunityConfig,
+                             author_mask: torch.Tensor, meta: int,
+                             counterparty: torch.Tensor,
+                             payload: torch.Tensor) -> PeerState:
+    """Draft a double-signed record and open its signature request: each
+    masked peer claims global_time + 1 for the draft and fills its
+    one-slot signature cache; the request rides in the next :func:`step`
+    and completes or expires there.  The draft is stored nowhere.
+
+    ``counterparty`` (int [N]) is each author's second signer.  A request
+    is refused (no side effect) when the author is dead, unloaded, a
+    tracker or hard-killed, already has one in flight, names itself, a
+    tracker or a peer outside the community, or -- for a meta
+    LinearResolution at the draft's gt -- lacks the permit in its own
+    table.  Raises ``ValueError`` for a meta that is not double-signed.
+    """
+    check_slice(cfg)
+    if not (meta < cfg.n_meta and (cfg.double_meta_mask >> meta) & 1):
+        raise ValueError(f"meta {meta} is not double-signed "
+                         f"(double_meta_mask={cfg.double_meta_mask:#x})")
+    n, t = cfg.n_peers, cfg.n_trackers
+    dev = state.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    cp = torch.as_tensor(counterparty, device=dev).to(torch.int64).reshape(n)
+    payload = wide(torch.as_tensor(payload, device=dev)).reshape(n)
+    gt_new = wide(state.global_time) + 1
+    ok = (torch.as_tensor(author_mask, device=dev).to(torch.bool)
+          & state.alive & state.loaded & ~state.is_tracker
+          & (state.sig_target == NO_PEER) & (cp != idx) & (cp >= t)
+          & (cp < n))
+    if cfg.timeline_enabled:
+        ok = ok & ~killed_mask(state.store_meta)
+        if ((cfg.protected_meta_mask | cfg.dynamic_meta_mask) >> meta) & 1:
+            permit = tl.check(_auth(state), narrow(idx)[:, None],
+                              _u32(meta, dev).expand(n, 1),
+                              narrow(gt_new)[:, None],
+                              _founder_col(cfg, dev)[:, None])[:, 0]
+            ok = ok & (~_author_linear(state, cfg, meta, narrow(gt_new))
+                       | permit)
+    return state.replace(
+        sig_target=torch.where(ok, cp.to(torch.int32), state.sig_target),
+        sig_meta=_fill(ok, state.sig_meta, meta),
+        sig_payload=narrow(torch.where(ok, payload, wide(state.sig_payload))),
+        sig_gt=narrow(torch.where(ok, gt_new, wide(state.sig_gt))),
+        sig_since=narrow(torch.where(ok, wide(state.round_index),
+                                     wide(state.sig_since))),
+        global_time=narrow(torch.where(ok, gt_new,
+                                       wide(state.global_time))))
 
 
 def _author_allowed(state: PeerState, cfg: CommunityConfig, meta: int,
@@ -2198,6 +2702,27 @@ def _author_allowed(state: PeerState, cfg: CommunityConfig, meta: int,
     return torch.ones(n, dtype=torch.bool, device=dev)
 
 
+def overlay_draw(key: torch.Tensor, cfg: CommunityConfig, rows: torch.Tensor,
+                 degree: int) -> torch.Tensor:
+    """int32 [len(rows), degree]: the neighbours :func:`seed_overlay`
+    gives the peers ``rows`` under the state key ``key`` (int64 carrier
+    pair), ``NO_PEER`` where a draw repeats an earlier one."""
+    n, t = cfg.n_peers, cfg.n_trackers
+    dev = rows.device
+    seed = rng.fold_seed(key)
+    j = torch.arange(degree, device=dev)[None, :]
+    base, span = t, max(n - t, 1)
+    nbr = base + rng.rand_u32(seed, 0xE1, rows[:, None], rng.P_GOSSIP,
+                              j) % span
+    nbr = torch.where(nbr == rows[:, None], base + (nbr - base + 1) % span,
+                      nbr)
+    earlier = (torch.arange(degree, device=dev)[None, :]
+               < torch.arange(degree, device=dev)[:, None])   # [i, j]: j < i
+    dup = (nbr[:, :, None] == torch.where(earlier, nbr[:, None, :],
+                                          NO_PEER)).any(dim=-1)
+    return torch.where(dup, NO_PEER, nbr).to(torch.int32)
+
+
 def seed_overlay(state: PeerState, cfg: CommunityConfig,
                  degree: int) -> PeerState:
     """Pre-seed every peer's candidate table with ``degree`` random walked
@@ -2213,19 +2738,8 @@ def seed_overlay(state: PeerState, cfg: CommunityConfig,
     if cfg.communities:
         raise NotImplementedError("communities are off the ported slice")
     dev = state.device
-    seed = rng.fold_seed(wide(state.key))
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    j = torch.arange(degree, device=dev)[None, :]
-    base, span = t, max(n - t, 1)
-    nbr = base + rng.rand_u32(seed, 0xE1, idx[:, None], rng.P_GOSSIP,
-                              j) % span
-    nbr = torch.where(nbr == idx[:, None], base + (nbr - base + 1) % span,
-                      nbr)
-    earlier = (torch.arange(degree, device=dev)[None, :]
-               < torch.arange(degree, device=dev)[:, None])   # [i, j]: j < i
-    dup = (nbr[:, :, None] == torch.where(earlier, nbr[:, None, :],
-                                          NO_PEER)).any(dim=-1)
-    nbr = torch.where(dup, NO_PEER, nbr).to(torch.int32)
+    nbr = overlay_draw(wide(state.key), cfg,
+                       torch.arange(n, dtype=torch.int64, device=dev), degree)
     eligible_at = _f32(0.0, dev) - _f32(cfg.eligibility_delay, dev)
     pad = cfg.k_candidates - degree
     never = _f32(NEVER, dev)

@@ -1,7 +1,7 @@
 """The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
-the permissioned and the hardened communities, the chaos round and the
-observed round (telemetry and tracing) at that shape, the schedules that
-drive them, and the card's profile of a main path.
+the permissioned, the hardened and the soak communities, the chaos round
+and the observed round (telemetry and tracing) at that shape, the
+schedules that drive them, and the card's profile of a main path.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -332,6 +332,134 @@ def hardened_schedule(n_peers: int, registry=None) -> list:
     return sorted(out, key=lambda c: c.round)
 
 
+def soak_config(n_peers: int) -> CommunityConfig:
+    """The soak community at the slice's widths: the protocol knobs of
+    the JAX package's everything-on soak (``examples/soak_all_features
+    .json``) -- eight metas; the Timeline with meta 1 protected and
+    dynamic and 8 table slots; the delay pen (3 slots) with missing-proof
+    requests; meta 3 double-signed; meta 4 sequenced with missing-
+    sequence requests; double-sign conviction with gossip; a 30%
+    symmetric-NAT share, 3% churn and 10% loss -- and the three knobs
+    that file leaves off: missing-message requests, the identity gate
+    with missing-identity requests, and meta 5 direct.  The file's
+    ``auto_load`` and its unload / load events belong to the community
+    rim and are left out (its ``auto_load`` is off, the default)."""
+    return slice_config(n_peers).replace(
+        n_meta=8, timeline_enabled=True, protected_meta_mask=0b10,
+        dynamic_meta_mask=0b10, k_authorized=8, delay_inbox=3,
+        proof_requests=True, double_meta_mask=1 << DOUBLE,
+        seq_meta_mask=1 << SEQ, seq_requests=True, malicious_enabled=True,
+        malicious_gossip=True, p_symmetric=0.3, churn_rate=0.03,
+        packet_loss=0.1, msg_requests=True, identity_enabled=True,
+        identity_required=True, identity_requests=True,
+        direct_meta_mask=1 << DIRECT)
+
+
+# Metas of the soak community: a public post, the protected dynamic
+# meta, the double-signed, the sequenced and the direct one.
+SOAK_POST, SOAK_PROTECTED, DOUBLE, SEQ, DIRECT = 0, 1, 3, 4, 5
+# A grantee's grant: permit and authorize on meta 1 (the soak file's),
+# and undo on meta 0 (so its undo-other of a post needs the grant).
+SOAK_GRANT = (perm_bit(SOAK_PROTECTED, "permit")
+              | perm_bit(SOAK_PROTECTED, "authorize")
+              | perm_bit(SOAK_POST, "undo"))
+SOAK_GRANT_ROUNDS = (0, 1, 2)
+SOAK_ROUNDS = range(3, 11)          # the posting rounds
+
+
+class SigRequest(NamedTuple):
+    """One ``create_signature_request`` call before ``step`` of
+    ``round``: each masked author drafts ``meta`` with its
+    ``counterparty``."""
+    round: int
+    meta: int
+    authors: np.ndarray        # bool[N]
+    counterparty: np.ndarray   # int32[N]
+    payload: np.ndarray        # uint32[N]
+
+
+class Undo(NamedTuple):
+    """An undo-other by each masked author of its own newest stored
+    record of ``meta`` (aux read from its own store when the call is
+    made, as :func:`pin_gt` does)."""
+    round: int
+    authors: np.ndarray        # bool[N]
+    meta: int
+
+
+def soak_roles(n_peers: int, seed: int = 0, degree: int = 8) -> dict:
+    """The authors (every 64th non-tracker peer, as bool[N]) and the
+    four grantees: the first four of the founder's neighbours that
+    ``engine.seed_overlay(state, cfg, degree)`` gives under ``seed``, so
+    that the founder's round-0 to 2 pushes of their grants can reach
+    them directly."""
+    import torch
+
+    from dispersy_tpu_torch.engine import overlay_draw
+    from dispersy_tpu_torch.state import seed_key
+    cfg = soak_config(n_peers)
+    f, t = cfg.founder, cfg.n_trackers
+    nbr = overlay_draw(torch.tensor(seed_key(seed), dtype=torch.int64),
+                       cfg, torch.tensor([f]), degree)[0].numpy()
+    idx = np.arange(n_peers)
+    return {"authors": (idx >= t) & ((idx - t) % 64 == 0),
+            "grantees": nbr[nbr >= 0][:4]}
+
+
+def soak_schedule(n_peers: int, seed: int = 0, degree: int = 8) -> list:
+    """The soak community's events, compressed so that every channel
+    fires within 3 warm-up and 8 timed rounds at any width.
+
+    Round 0: the authors and grantees publish their identities.  Rounds
+    0-2: the founder grants each grantee :data:`SOAK_GRANT` (one call a
+    grantee a round).  Rounds 1-10: each author drafts a double-signed
+    record with the next author as its counterparty (refused while one
+    is in flight; lost ones expire two rounds later).  Rounds 3-10: the
+    authors post (meta 0), write two sequenced records (a lost first
+    link leaves a gap) and send a direct record; the grantees post on
+    the protected meta (receivers without the grant park and ask for
+    the proof) and, from round 4, undo their round-3 post (receivers
+    without it park and ask for it).  A post reaching a peer without
+    its author's identity parks and asks for it."""
+    n = n_peers
+    roles = soak_roles(n, seed, degree)
+    authors, grantees = roles["authors"], roles["grantees"]
+    cfg = soak_config(n)
+    f = cfg.founder
+    idx = np.arange(n, dtype=np.uint32)
+    zero = np.zeros(n, np.uint32)
+    g_mask = np.zeros(n, bool)
+    g_mask[grantees] = True
+    founder = np.zeros(n, bool)
+    founder[f] = True
+    ids = np.flatnonzero(authors)
+    cp = np.full(n, -1, np.int32)
+    cp[ids] = np.roll(ids, -1)
+    out = [Create(0, META_IDENTITY, authors | g_mask, idx, zero)]
+    for r in SOAK_GRANT_ROUNDS:
+        for g in grantees:
+            out.append(Create(r, META_AUTHORIZE, founder,
+                              np.where(founder, g, 0).astype(np.uint32),
+                              np.where(founder, SOAK_GRANT, 0).astype(
+                                  np.uint32)))
+    for r in range(1, 11):
+        out.append(SigRequest(r, DOUBLE, authors, cp,
+                              idx + np.uint32(1000 * r)))
+    for r in SOAK_ROUNDS:
+        pay = idx + np.uint32(100_000 * r)
+        out += [Create(r, SOAK_POST, authors, pay, zero),
+                Create(r, SEQ, authors, pay + 1, zero),
+                Create(r, SEQ, authors, pay + 2, zero),
+                Create(r, DIRECT, authors, pay + 3, zero),
+                Create(r, SOAK_PROTECTED, g_mask, pay + 4, zero)]
+        if r == SOAK_ROUNDS[0]:
+            out.append(Create(r, SOAK_POST, g_mask, pay + 5, zero))
+        else:
+            out.append(Undo(r, g_mask, SOAK_POST))
+    return sorted(out, key=lambda c: c.round)
+
+
+FWD_COLS = ("gt", "member", "meta", "payload", "aux")
 FWD_COLS = ("gt", "member", "meta", "payload", "aux")
 
 
@@ -370,6 +498,18 @@ def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
         if isinstance(c, Track):
             state, _ = engine.track_record(state, cfg, c.author, c.gt)
             continue
+        if isinstance(c, SigRequest):
+            state = engine.create_signature_request(
+                state, cfg, torch.from_numpy(c.authors).to(state.device),
+                c.meta, torch.from_numpy(c.counterparty).to(state.device),
+                torch.from_numpy(c.payload.astype(np.int64)).to(
+                    state.device))
+            continue
+        if isinstance(c, Undo):
+            c = Create(c.round, META_UNDO_OTHER, c.authors,
+                       np.arange(len(c.authors), dtype=np.uint32),
+                       pin_gt(np.arange(len(c.authors), dtype=np.uint32),
+                              c.authors, rows, c.meta))
         if isinstance(c, Plant):
             cols = {k: getattr(state, f"fwd_{k}") for k in FWD_COLS}
             new = plant_fwd({k: wide(v).cpu().numpy()
@@ -387,18 +527,20 @@ def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
     return state
 
 
-def pin_gt(payload: np.ndarray, authors: np.ndarray, rows) -> np.ndarray:
+def pin_gt(payload: np.ndarray, authors: np.ndarray, rows,
+           meta: int = PIN) -> np.ndarray:
     """uint32[N] aux of an undo-other call: for each author, the highest
-    global time of a pin (meta 1) that its payload member holds in its
-    own store, else 0.  ``rows(ids)`` returns the numpy
-    ``(store_gt, store_member, store_meta)`` rows of those peers."""
+    global time of a record of ``meta`` (a pin by default) that its
+    payload member holds in its own store, else 0.  ``rows(ids)``
+    returns the numpy ``(store_gt, store_member, store_meta)`` rows of
+    those peers."""
     out = np.zeros(payload.shape[0], np.uint32)
     ids = np.flatnonzero(authors)
     if not ids.size:
         return out
     tgt = payload[ids].astype(np.int64)
     g, m, t = (np.asarray(a).astype(np.int64) for a in rows(tgt))
-    own = (m == tgt[:, None]) & (t == PIN) & (g != EMPTY_U32)
+    own = (m == tgt[:, None]) & (t == meta) & (g != EMPTY_U32)
     out[ids] = np.where(own, g, 0).max(axis=1)
     return out
 
@@ -414,7 +556,8 @@ ENGINE_SCOPES = ("trace_lineage", "trace_coverage", "telemetry_row")
 def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                    seed: int = 0, top: int = 15, diet: bool = False,
                    timeline: bool = False, hardened: bool = False,
-                   chaos: bool = False, observed: bool = False) -> dict:
+                   chaos: bool = False, observed: bool = False,
+                   soak: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
     ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
@@ -429,7 +572,10 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     of :func:`chaos_config` (8 shards, budget 4096) driven by
     :func:`one_record_schedule`; with ``observed``, the observed round of
     :func:`observed_config` driven by :func:`observed_schedule` (the
-    traced rounds as ``diet``'s).  Reports wall time; device busy time (the sum
+    traced rounds as ``diet``'s); with ``soak``, the soak round of
+    :func:`soak_config` driven by :func:`soak_schedule` (the traced
+    rounds 3-5: posts, sequence gaps, undos, drafts, the pen's four
+    channels).  Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
     the share of it in the hand-written kernels; the device time the
     profiler gives each of the engine's plane ranges
@@ -438,7 +584,8 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
     ``python -m dispersy_tpu_torch.profiling [--diet | --timeline |
-    --hardened | --chaos | --observed]`` prints it as one JSON line."""
+    --hardened | --chaos | --observed | --soak]`` prints it as one JSON
+    line."""
     import time
 
     import torch
@@ -449,10 +596,13 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    if diet + timeline + hardened + chaos + observed > 1:
-        raise ValueError("pick one of diet, timeline, hardened, chaos and "
-                         "observed")
-    if observed:
+    if diet + timeline + hardened + chaos + observed + soak > 1:
+        raise ValueError("pick one of diet, timeline, hardened, chaos, "
+                         "observed and soak")
+    if soak:
+        cfg = soak_config(n_peers)
+        creates = soak_schedule(n_peers, seed)
+    elif observed:
         cfg = observed_config(n_peers)
         creates = observed_schedule(n_peers)
     elif chaos:
@@ -506,7 +656,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
         "timeline": timeline, "hardened": hardened, "chaos": chaos,
-        "observed": observed,
+        "observed": observed, "soak": soak,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
@@ -2148,6 +2298,10 @@ if __name__ == "__main__":
     which.add_argument("--observed", action="store_true",
                        help="trace the observed round of observed_config "
                        "(telemetry and tracing on the diet round)")
+    which.add_argument("--soak", action="store_true",
+                       help="trace the soak round of soak_config (the "
+                       "delay pen, its request channels, double-signed "
+                       "and direct metas)")
     args = ap.parse_args()
     if args.delivery is not None:
         for run in (profile_roots(args.delivery, "profile_delivery()")
@@ -2175,4 +2329,5 @@ if __name__ == "__main__":
     print(json.dumps(profile_rounds(diet=args.diet, timeline=args.timeline,
                                     hardened=args.hardened, chaos=args.chaos,
                                     observed=args.observed,
+                                    soak=args.soak,
                                     rounds=5 if args.timeline else 3)))

@@ -252,16 +252,43 @@ def test_init_state_sizes_the_new_planes(case):
 
 @pytest.mark.parametrize("field,kw", [
     ("communities", dict(communities=((60, 1), (66, 1)))),
-    ("delay_inbox", dict(delay_inbox=3, timeline_enabled=True, n_meta=4,
-                         protected_meta_mask=0b10)),
-    ("double_meta_mask", dict(double_meta_mask=1)),
-    ("direct_meta_mask", dict(direct_meta_mask=1)),
 ])
 def test_check_slice_still_refuses(field, kw):
     from dispersy_tpu_torch import engine
     pc = pconfig.CommunityConfig(**dict(CONFIGS[1], **kw))
     with pytest.raises(NotImplementedError, match=field):
         engine.check_slice(pc)
+
+
+_PEN = dict(delay_inbox=3, timeline_enabled=True, n_meta=6,
+            protected_meta_mask=0b10)
+
+
+@pytest.mark.parametrize("field,kw", [
+    ("delay_inbox", _PEN),
+    ("proof_requests", dict(_PEN, proof_requests=True)),
+    ("seq_requests", dict(_PEN, seq_meta_mask=0b100, seq_requests=True)),
+    ("msg_requests", dict(_PEN, msg_requests=True)),
+    ("identity_requests", dict(_PEN, identity_enabled=True,
+                               identity_required=True,
+                               identity_requests=True)),
+    ("double_meta_mask", dict(double_meta_mask=1)),
+    ("direct_meta_mask", dict(direct_meta_mask=1)),
+])
+def test_check_slice_accepts_and_runs(field, kw):
+    """Each knob that the slice once refused is accepted: a config with
+    it runs two rounds on the CPU and sizes its leaves as the JAX
+    package does."""
+    from dispersy_tpu_torch import engine
+    jc, pc = build(dict(CONFIGS[1], n_peers=64, **kw))
+    engine.check_slice(pc)
+    st = engine.seed_overlay(init_state(pc, 3, device="cpu"), pc, 4)
+    st = engine.multi_step(st, pc, 2)
+    assert int(st.round_index.view(torch.int32)) == 2
+    want = jstate.init_state(jc, jax.random.PRNGKey(3))
+    for name in ("dly_gt", "dly_src", "sig_target", "sig_since"):
+        assert tuple(getattr(st, name).shape) == tuple(
+            np.shape(getattr(want, name))), name
 
 
 def test_chaos_config_init_state_equal():

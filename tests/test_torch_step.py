@@ -168,25 +168,6 @@ def test_diet_phase_argument_equals_cadence():
         engine.step(ps, pc, "compact")
 
 
-@pytest.mark.parametrize("field", ["direct_meta_mask"])
-def test_diet_off_slice_raises(field):
-    """Direct metas are not ported, on the diet either."""
-    cfg = CommunityConfig(**BASE, **{field: 1}, store=StoreConfig(staging=4))
-    st = init_state(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        engine.step(st, cfg)
-
-
-@pytest.mark.parametrize("field,value", [
-    ("double_meta_mask", 1),
-])
-def test_off_slice_config_raises(field, value):
-    cfg = CommunityConfig(**dict(BASE, **{field: value}))
-    st = init_state(CommunityConfig(**BASE), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        engine.step(st, cfg)
-
-
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the no-card refusal cannot show")
