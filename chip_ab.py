@@ -5,8 +5,9 @@ one card, in turns.
     python3 chip_ab.py OTHER_ROOT [PATH ...]
 
 runs the six main paths of the first slices (or only the named ones, in
-the order given: say ``chaos chaos_flat``; ``observed``, ``syncless``
-and ``soak`` run only when named, on checkouts that have them) of the
+the order given: say ``chaos chaos_flat``; ``observed``, ``syncless``,
+``soak`` and ``communities8`` run only when named, on checkouts that
+have them) of the
 checkout at
 ``OTHER_ROOT`` (say, the parent
 commit unpacked with ``git archive`` into a git-ignored directory) and of
@@ -86,6 +87,13 @@ def run_paths(root: str, only: list) -> dict:
                           int(soak_roles(n, cs.SEED)["grantees"][0])),
                          None)
         channels["soak"] = cs.SOAK_CHANNELS
+    if "communities8" in only:
+        from dispersy_tpu_torch.profiling import (communities_config,
+                                                  communities_schedule)
+        comm = communities_config(cs.COMM_PEERS)
+        mains["communities8"] = (comm, cs.COMM_PATH, cs.WARMUP, cs.ROUNDS,
+                                 communities_schedule(cs.COMM_PEERS),
+                                 cs.comm_record(comm), cs.comm_spread(comm))
     out = {}
     for path in only or mains:
         cfg, needed, warmup, rounds, creates, record, spread = mains[path]

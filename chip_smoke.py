@@ -51,7 +51,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    drawn with the 1M round's shares, at the round's budget and at one
    that binds nowhere, on the exact request channel with receipts, where
    it must also equal K1, and on the exact puncture channels; K1 with
-   classes on the unsharded push blast)
+   classes on the unsharded push blast), then K8's corner under a real
+   founder column (4099 rows in three communities, the blocks starting
+   at rows 3, 1001 and 2501)
    -- held bit
    for bit against its plain PyTorch version on the card, and timed with
    CUDA events (queued behind a spin of the card, so that a call shorter
@@ -74,10 +76,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    overload plane must shed), 20 rounds each, the observed round
    (``profiling.observed_config(4096)`` with ``p_symmetric=0.3``, the
    health sentinels and an 8-record flight recorder, four records
-   tracked), the diet without sync (``profiling.syncless_config``) and
-   the soak community (``profiling.soak_config(4096)`` driven by
-   ``profiling.soak_schedule``, every channel's counter nonzero after
-   it), 24 rounds each;
+   tracked) and the diet without sync (``profiling.syncless_config``),
+   24 rounds each, the soak community (``profiling.soak_config(4096)``
+   driven by ``profiling.soak_schedule``, its unload and load included,
+   every channel's counter nonzero after it) for 14 rounds, and config #5
+   (``profiling.communities_config(4096)``: 8 blocks of 511 members and
+   1 tracker, ``communities_schedule``) for 20 rounds, every block's
+   protected record and first public post inside its own block only;
 4. main paths through the public entry points -- init_state,
    seed_overlay(8), the creates, warm-up and timed rounds -- each with
    every kernel's launch count read after it: the byte-diet round at
@@ -117,7 +122,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the four request channels, K4 at each serve compaction and at the
    pen rebuild, K11 on the pen and the countersigners, K8 and K9 on the
    signature inbox) are held against the plain versions and timed
-   after it (``check_soak_kernels``).
+   after it (``check_soak_kernels``); the rows of its unloaded block that
+   churn did not rebirth must stay unloaded with empty instance memory,
+   and the reloaded half must walk again.  Last, config #5 at 1,000,000
+   peers (``communities_config``, the communities8 path, 3 + 5 rounds
+   of ``communities_schedule``): it fails unless every block's protected
+   record and first public post spread inside their own block only
+   (``engine.coverage_by_community``); the last call of each kernel
+   call shape of its rounds (``KernelCapture``) is held against its
+   plain version and timed after it; its final state is saved (``checkpoint.save``),
+   restored on the card and stepped 2 rounds beside the original, equal
+   on every leaf, with the archive's bytes and the save and restore
+   seconds printed;
+5. scenario: ``examples/soak_all_features.json`` (512 peers, 600 rounds)
+   through ``scenario.run`` on the card with an autosave every 100
+   rounds; the run resumed from the round-400 autosave (past the unload
+   at 250 and the load at 330) must end bit-identical in its final state
+   and metrics log, and its first 60 rounds (the state kept by a
+   checkpoint event at round 60) must equal the port's CPU run on every
+   leaf and every metrics row.
 
 The second-to-last lines are the card line and the kernels JSON line; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -127,6 +150,7 @@ it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -182,13 +206,27 @@ SOAK_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
              "store_match_undo_marked", "store_match_meta_of",
              "store_match_undo_hits", "store_probe_conflict",
              "store_probe_identity", "store_probe_seq_max")
-SOAK_PARITY_ROUNDS = 24
+SOAK_PARITY_ROUNDS = 14       # the unload at 4, the load at 7, every channel
 SOAK_WARMUP, SOAK_ROUNDS = 3, 8
 # The counters of the soak community's channels: each must grow in the
 # parity run and in the main path's timed rounds.
 SOAK_CHANNELS = ("msgs_delayed", "proof_records", "seq_records",
                  "mm_records", "id_records", "sig_done", "sig_expired",
                  "msgs_direct")
+# The communities8 path: config #5 at 1,000,000 peers (8 blocks of
+# 124,999 members and 1 tracker), 3 + 5 rounds; then its state saved,
+# restored and stepped CKPT_ROUNDS rounds beside the original.
+COMM_PEERS = 1_000_000
+COMM_PATH = ("deliver", "bloom_build", "bloom_query", "store_insert",
+             "rank_compact_many", "intake_checks", "timeline_check",
+             "timeline_check_many", "timeline_check_grant",
+             "timeline_check_grant_rev", "store_match_meta_of",
+             "store_match_undo_marked", "store_match_undo_hits")
+COMM_PARITY_ROUNDS = 20
+CKPT_ROUNDS = 2
+# The scenario phase: the soak file's 600 rounds, an autosave every 100,
+# the resume from round 400, the first 60 rounds against the CPU.
+SCN_AUTOSAVE, SCN_RESUME, SCN_CPU_ROUNDS = 100, 400, 60
 
 
 def fail(msg: str) -> None:
@@ -1783,14 +1821,19 @@ def chaos_totals(state) -> dict:
 
 def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
                rounds: int, creates: list, record: tuple,
-               spread=None, channels=()) -> dict:
+               spread=None, channels=(), before=None, after=None,
+               finish=None) -> dict:
     """Drive one main path through the public entry points with the
     launch counts set to 0 just before and read just after: the creates
     of each round before its step, the coverage of ``record`` (member,
     gt, meta, payload) after each timed round.  A round's time includes
     its creates.  ``spread`` (a function of the state, default the
     coverage) must grow over the timed rounds, and so must each counter
-    of ``channels``."""
+    of ``channels``.  ``record`` may be a function of the state.
+    ``before(rnd)`` runs before each round's creates,
+    ``after(rnd, state)`` after each round's step (outside the timed
+    window), and ``finish(state)`` once the launch counts and the peak
+    memory are read; the dict it returns joins the path's line."""
     import torch
 
     from dispersy_tpu_torch import engine, init_state, kernels, metrics
@@ -1803,6 +1846,8 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     t0 = time.perf_counter()
     state = init_state(cfg, seed, device="cuda")
     state = engine.seed_overlay(state, cfg, 8)
+    if before:
+        before(0)
     state = run_creates(state, cfg, creates, 0)
     n = cfg.n_peers
     torch.cuda.synchronize()
@@ -1810,8 +1855,12 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     cov, grown = [], []
     for rnd in range(warmup):
         if rnd:
+            if before:
+                before(rnd)
             state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
+        if after:
+            after(rnd, state)
     torch.cuda.synchronize()
     chaos = cfg.faults.health_checks
     shed0 = chaos_totals(state)["xshard_shed"] if chaos else 0
@@ -1825,13 +1874,18 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
     for rnd in range(warmup, warmup + rounds):
         if searched:
             off_search += intake_unsorted_rows(state)
+        if before:
+            before(rnd)
         a = time.perf_counter()
         state = run_creates(state, cfg, creates, rnd)
         state = engine.step(state, cfg)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - a)
+        if after:
+            after(rnd, state)
         phases.append(phase_of(cfg, rnd))
-        cov.append(float(engine.coverage(state, *record)))
+        cov.append(float(engine.coverage(
+            state, *(record(state) if callable(record) else record))))
         grown.append(float(spread(state)) if spread else cov[-1])
         if observed:
             # Read after the timed window: the row's round word and the
@@ -1911,6 +1965,9 @@ def main_phase(cfg, path: str, kernels_needed, seed: int, warmup: int,
             fail(f"{path} main path: the cross-shard cap "
                  f"{cfg.parallel.cross_shard_budget} shed nothing in the "
                  "timed rounds")
+
+    if finish:
+        extra.update(finish(state))
 
     def med(kind):
         sel = [t for t, ph in zip(times, phases) if kind in (None, ph)]
@@ -2223,6 +2280,520 @@ def check_soak_kernels(cap: SoakCapture, reps: int) -> list:
     return rows
 
 
+# ---- the communities8 path: config #5 ------------------------------------
+
+class KernelCapture:
+    """While ``on``, keep the arguments of every call of the wrappers in
+    :data:`CAPTURED`, the last call of each wrapper and call shape.  The
+    wrappers are patched on the ``kernels`` module, where the ops look
+    them up; the calls themselves run unchanged."""
+    CAPTURED = ("deliver", "bloom_build", "bloom_query", "store_insert",
+                "store_remove", "rank_compact_many", "intake_checks",
+                "store_match", "timeline_check", "timeline_check_many",
+                "timeline_check_grant", "timeline_check_grant_rev")
+
+    def __init__(self):
+        self.on, self.got = False, {}
+
+    def __enter__(self):
+        from dispersy_tpu_torch import kernels
+        self.saved = {k: getattr(kernels, k) for k in self.CAPTURED}
+
+        def spy(name, fn):
+            sig = inspect.signature(fn)
+
+            def call(*a, **kw):
+                if self.on:
+                    bound = sig.bind(*a, **kw)
+                    bound.apply_defaults()
+                    args = tuple(bound.arguments.values())
+                    self.got[(name, shape_sig(args))] = args
+                return fn(*a, **kw)
+            return call
+        for k, f in self.saved.items():
+            setattr(kernels, k, spy(k, f))
+        return self
+
+    def __exit__(self, *exc):
+        from dispersy_tpu_torch import kernels
+        for k, f in self.saved.items():
+            setattr(kernels, k, f)
+        return False
+
+
+def shape_sig(args) -> tuple:
+    """A call's shape: the shapes of its tensors (nested sequences
+    flattened) and its scalar arguments."""
+    import torch
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(tuple(a.shape))
+        elif isinstance(a, (list, tuple)):
+            out.append(shape_sig(a))
+        else:
+            out.append(a)
+    return tuple(out)
+
+
+def match_plain(mode, w_cols, q_cols):
+    """K9's plain version in ``mode`` on the wrapper's own arguments."""
+    from dispersy_tpu_torch.ops import intake
+    if mode == "flip":
+        return intake.flip_best_batch_plain(*w_cols, *q_cols)
+    if mode == "undo_hits":
+        stc = types.SimpleNamespace(member=q_cols[0], gt=q_cols[1])
+        return intake.undo_hits_store_plain(stc, w_cols[1], w_cols[2],
+                                            w_cols[0])
+    if mode == "undo_marked":
+        stc = types.SimpleNamespace(meta=w_cols[0], payload=w_cols[1],
+                                    aux=w_cols[2])
+        return intake.undo_marked_plain(stc, *q_cols)
+    stc = types.SimpleNamespace(meta=w_cols[0], member=w_cols[1],
+                                gt=w_cols[2])
+    return intake.stored_meta_of_plain(stc, *q_cols)
+
+
+MATCH_REPLACES = {"flip": "dispersy_tpu/ops/intake.py:182",
+                  "undo_marked": "dispersy_tpu/ops/intake.py:217",
+                  "meta_of": "dispersy_tpu/ops/intake.py:293",
+                  "undo_hits": "dispersy_tpu/ops/intake.py:244"}
+
+
+def captured_row(x: Draw, cfg, name: str, args: tuple, reps: int):
+    """One kernels-JSON row for a captured call of wrapper ``name``: the
+    kernel held bit for bit against its plain version on the call's own
+    inputs, both timed, with the bound the wrapper's rows elsewhere in
+    this script use (and ``torch.sort`` of the packed key for K1, the
+    (gt, member) key for K3)."""
+    import math
+
+    from dispersy_tpu_torch import kernels
+    from dispersy_tpu_torch.ops import bloom, inbox, intake
+    from dispersy_tpu_torch.ops import store as st
+    from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.profiling import k9_bytes
+    n = cfg.n_peers
+    tl_src, tl_k8 = ("dispersy_tpu_torch/csrc/timeline.cu",
+                     "dispersy_tpu/ops/timeline.py:100")
+    if name == "deliver":
+        dst, cols, valid, n_dst, q, cls = args
+        tag = ("tracker" if n_dst == cfg.n_trackers
+               else f"e{dst.shape[0]}_q{q}_c{len(cols)}")
+        got = kernels.deliver(dst, cols, valid, n_dst, q, cls)
+        want = inbox.deliver_plain(dst, cols, valid, n_dst, q, cls)
+        return k1_row(x, f"comm_deliver_{tag}", dst, valid, cols, n_dst, q,
+                      [*got[0], *got[1:]], [*want.inbox, *want[1:]], reps,
+                      cls=cls,
+                      kernel="deliver" if cls is None else "deliver_cls")
+    if name == "store_insert":
+        store, new, mask, history = args
+        history = tuple(history) if any(k > 0 for k in history) else ()
+        return k3_row(x, f"comm_store_insert_b{new.gt.shape[1]}", store, new,
+                      mask, history, reps)
+    if name == "rank_compact_many":
+        cols, slot, width = args
+        return compact_row(f"comm_rank_compact_many_w{slot.shape[1]}_"
+                           f"to{width}_c{len(cols)}", cols, slot, width,
+                           reps)
+    if name == "store_match":
+        mode, w_cols, q_cols = args
+        out = kernels.store_match(mode, w_cols, q_cols)
+        return timed_entry(
+            f"comm_store_match_{mode}_q{out.shape[1]}", "cuda",
+            "dispersy_tpu_torch/csrc/match.cu", MATCH_REPLACES[mode], [out],
+            [match_plain(mode, w_cols, q_cols)],
+            lambda: kernels.store_match(mode, w_cols, q_cols),
+            lambda: match_plain(mode, w_cols, q_cols),
+            k9_bytes(mode, w_cols, q_cols, out), reps,
+            kernel=f"store_match_{mode}")
+    if name == "bloom_build":
+        h, mask, bits, k, salt = args
+        n_set = int(mask.sum())
+        out = kernels.bloom_build(h, mask, bits, k, salt)
+        return timed_entry(
+            f"comm_bloom_build_m{h.shape[1]}", "cuda",
+            "dispersy_tpu_torch/csrc/bloom.cu",
+            "dispersy_tpu/ops/bloom.py:196", [out],
+            [bloom.bloom_build_plain(h, mask, bits, k, salt)],
+            lambda: kernels.bloom_build(h, mask, bits, k, salt),
+            lambda: bloom.bloom_build_plain(h, mask, bits, k, salt),
+            nbytes(mask) + 4 * n_set + nbytes(out), reps,
+            ops=n_set * k * 12, kernel="bloom_build")
+    if name == "bloom_query":
+        words, h, bits, k, salt = args
+        out = kernels.bloom_query(words, h, bits, k, salt)
+        return timed_entry(
+            f"comm_bloom_query_m{h.shape[1]}", "cuda",
+            "dispersy_tpu_torch/csrc/bloom.cu",
+            "dispersy_tpu/ops/bloom.py:277", [out],
+            [bloom.bloom_query_plain(words, h, bits, k, salt)],
+            lambda: kernels.bloom_query(words, h, bits, k, salt),
+            lambda: bloom.bloom_query_plain(words, h, bits, k, salt),
+            nbytes(words, h, out), reps, ops=h.numel() * k * 12,
+            kernel="bloom_query")
+    if name == "intake_checks":
+        sg, sm, member, gt, ok = args
+        b, m = gt.shape[1], sg.shape[1]
+
+        def plain():
+            return (intake.in_store_plain(sg, sm, member, gt),
+                    intake.dup_earlier_plain(member, gt, ok))
+        return timed_entry(
+            f"comm_intake_checks_b{b}", "cuda",
+            "dispersy_tpu_torch/csrc/intake.cu",
+            "dispersy_tpu/ops/intake.py:80",
+            list(kernels.intake_checks(*args)), list(plain()),
+            lambda: kernels.intake_checks(*args), plain,
+            nbytes(*args) + 2 * n * b, reps,
+            ops=n * b * (math.ceil(math.log2(m)) + 2),
+            kernel="intake_checks")
+    if name == "store_remove":
+        store, kill = args
+        got = list(kernels.store_remove(store, kill))
+        want = st.store_remove_plain(store, kill)
+        kept = int((got[0].view(x.torch.int32) != -1).sum())
+        return timed_entry(
+            "comm_store_remove", "cuda", "dispersy_tpu_torch/csrc/remove.cu",
+            "dispersy_tpu/ops/store.py:577", got,
+            [*want.store, want.n_removed],
+            lambda: kernels.store_remove(store, kill),
+            lambda: st.store_remove_plain(store, kill),
+            4 * store.gt.numel() + nbytes(kill) + 14 * kept + nbytes(*got),
+            reps)
+    tab = args[0]
+    tab_b = 13 * tab.member.numel()
+    if name == "timeline_check":
+        tab, member, meta, gt, founder, perm = args
+        q = gt.shape[1]
+        return timed_entry(
+            f"comm_timeline_check_q{q}_perm{perm}", "cuda", tl_src, tl_k8,
+            [kernels.timeline_check(*args)], [tl.check_plain(*args)],
+            lambda: kernels.timeline_check(*args),
+            lambda: tl.check_plain(*args),
+            tab_b + nbytes(member, meta, gt, founder_t(founder)) + n * q,
+            reps, kernel="timeline_check")
+    if name == "timeline_check_many":
+        tab, member, pairs, gt, founder = args
+        q = gt.shape[1]
+        return timed_entry(
+            f"comm_timeline_check_many_q{q}_k{len(pairs)}", "cuda", tl_src,
+            tl_k8, list(kernels.timeline_check_many(*args)),
+            list(tl.check_many_plain(*args)),
+            lambda: kernels.timeline_check_many(*args),
+            lambda: tl.check_many_plain(*args),
+            tab_b + nbytes(member, gt, founder_t(founder),
+                           *(k for k, _ in pairs)) + len(pairs) * n * q,
+            reps, kernel="timeline_check_many")
+    if name == "timeline_check_grant":
+        tab, member, mask, gt, nm, perm = args
+        q = gt.shape[1]
+        return timed_entry(
+            f"comm_timeline_check_grant_q{q}_perm{perm}", "cuda", tl_src,
+            "dispersy_tpu/ops/timeline.py:133",
+            [kernels.timeline_check_grant(*args)],
+            [tl.check_grant_plain(*args)],
+            lambda: kernels.timeline_check_grant(*args),
+            lambda: tl.check_grant_plain(*args),
+            tab_b + nbytes(member, mask, gt) + n * q, reps,
+            kernel="timeline_check_grant")
+    tab, member, mask, gt, is_rev, nm = args
+    q = gt.shape[1]
+    return timed_entry(
+        f"comm_timeline_check_grant_rev_q{q}", "cuda", tl_src,
+        "dispersy_tpu/ops/timeline.py:133",
+        [kernels.timeline_check_grant_rev(*args)],
+        [tl.check_grant_rev_plain(*args)],
+        lambda: kernels.timeline_check_grant_rev(*args),
+        lambda: tl.check_grant_rev_plain(*args),
+        tab_b + nbytes(member, mask, gt, is_rev) + n * q, reps,
+        kernel="timeline_check_grant_rev")
+
+
+def founder_t(founder):
+    """The founder argument as a tensor (an int founder moves no bytes)."""
+    import torch
+    return founder if isinstance(founder, torch.Tensor) else torch.empty(0)
+
+
+def check_comm_kernels(cap: KernelCapture, cfg, reps: int) -> list:
+    """Every kernel call shape of the communities8 path, on the inputs
+    its last call of that shape gave the wrapper (the author gate's
+    ``check_grant`` from the founders' grants, the rest from the timed
+    rounds), held bit for bit against the plain versions and timed
+    (:func:`captured_row`)."""
+    if not cap.got:
+        fail("communities8 main path: no kernel call captured")
+    x = inputs(cfg, SEED)
+    rows, seen = [], {}
+    for (name, _), args in cap.got.items():
+        row = captured_row(x, cfg, name, args, reps)
+        k = seen[row["name"]] = seen.get(row["name"], 0) + 1
+        if k > 1:
+            row["name"] += f"_{k}"
+        row["_path"] = "communities8"
+        rows.append(row)
+    return rows
+
+
+def check_timeline_block_founders(x: Draw, reps: int) -> list:
+    """K8's corner with a real founder column, untimed: 4099 rows in
+    three communities whose member blocks start at rows 3, 1001 and 2501
+    (no multiple of a CUDA block), the column ``engine._founder_col`` of
+    that layout; a third of the table's grants issued by the row's own
+    founder (the root test reads the column) and some by another block's;
+    ``check`` in each permission, ``check_many``, ``check_grant`` and
+    ``check_grant_rev`` bit-equal to their plain versions."""
+    torch = x.torch
+    from dispersy_tpu_torch import engine, kernels
+    from dispersy_tpu_torch.config import (CommunityConfig, PERM_AUTHORIZE,
+                                           PERM_PERMIT, PERM_REVOKE,
+                                           PERM_UNDO)
+    from dispersy_tpu_torch.ops import timeline as tl
+    from dispersy_tpu_torch.profiling import grant_table, timeline_queries
+    cfg = CommunityConfig(n_peers=CORNER_ROWS, n_trackers=3,
+                          communities=((998, 1), (1500, 1), (1598, 1)))
+    n = cfg.n_peers
+    founder = engine._founder_col(cfg, x.dev)
+    want_f = torch.from_numpy(cfg.layout()[3]).to(x.dev)
+    if not torch.equal(founder.view(torch.int32), want_f):
+        fail("engine._founder_col disagrees with CommunityConfig.layout()")
+    founder = founder[:, None]
+    tab = grant_table(x, n, 8)
+    own = founder.view(torch.int32)
+    other = torch.roll(own, 1500, dims=0)      # another block's founder
+    issuer = torch.where(x.flags(1 / 3, n, 8), own,
+                         torch.where(x.flags(0.2, n, 8), other,
+                                     tab.issuer.view(torch.int32)))
+    tab = tab._replace(issuer=issuer.view(torch.uint32))
+    cases = 0
+    for q in (1, 24, 33):
+        member, meta8, gt = timeline_queries(x, n, q, empty=0.1)
+        _, meta32, _ = timeline_queries(x, n, q, u8=False)
+        for perm in (PERM_PERMIT, PERM_AUTHORIZE, PERM_REVOKE, PERM_UNDO):
+            for meta in (meta8, meta32):
+                args = (tab, member, meta, gt, founder, perm)
+                if max_abs_err([kernels.timeline_check(*args)],
+                               [tl.check_plain(*args)]):
+                    fail("timeline_check disagrees with its plain version "
+                         "under a block founder column")
+                cases += 1
+        pairs = ((meta32, PERM_UNDO), (meta8, PERM_AUTHORIZE),
+                 (meta8, PERM_PERMIT))
+        args = (tab, member, pairs, gt, founder)
+        if max_abs_err(kernels.timeline_check_many(*args),
+                       tl.check_many_plain(*args)):
+            fail("timeline_check_many disagrees with its plain version "
+                 "under a block founder column")
+        mask = x.u32(n, q, hi=1 << 12)
+        is_rev = x.flags(0.5, n, q)
+        for perm in (PERM_AUTHORIZE, PERM_REVOKE):
+            args = (tab, member, mask, gt, cfg.n_meta, perm)
+            if max_abs_err([kernels.timeline_check_grant(*args)],
+                           [tl.check_grant_plain(*args)]):
+                fail("timeline_check_grant disagrees with its plain version")
+        args = (tab, member, mask, gt, is_rev, cfg.n_meta)
+        if max_abs_err([kernels.timeline_check_grant_rev(*args)],
+                       [tl.check_grant_rev_plain(*args)]):
+            fail("timeline_check_grant_rev disagrees with its plain version")
+        cases += 4
+    print(f"kernel timeline_check block founders: {cases} cases at "
+          f"{n} rows, mismatches 0 (untimed)", flush=True)
+    return []
+
+
+COMM_KERNEL_CHECKS = (check_timeline_block_founders,)
+
+
+def comm_spread(cfg):
+    """The communities8 spread: over every block, its protected record's
+    coverage inside the block."""
+    from dispersy_tpu_torch import engine
+    from dispersy_tpu_torch.profiling import communities_records
+
+    def spread(state):
+        return sum(float(engine.coverage_by_community(state, cfg, *rec)[c])
+                   for c, rec in communities_records(state, cfg)
+                   if rec[2] == 1)
+    return spread
+
+
+def comm_record(cfg):
+    """The communities8 coverage record: block 0's first public post
+    (its gt read from its author's store; the post is made in round
+    ``R_COMM_POSTS``, and before it the coverage reads 0)."""
+    from dispersy_tpu_torch.profiling import communities_records
+
+    def record(state):
+        got = [rec for c, rec in communities_records(state, cfg)
+               if c == 0 and rec[2] == 0]
+        return got[0] if got else (63, 0, 0, 63)
+    return record
+
+
+def comm_blocks(state, cfg) -> dict:
+    """Fails unless every block's protected record and first public post
+    exist and spread inside their own block only, as
+    ``coverage_by_community`` reads them."""
+    from dispersy_tpu_torch import engine
+    from dispersy_tpu_torch.profiling import communities_records
+    recs = communities_records(state, cfg)
+    got = {}
+    for c, rec in recs:
+        cov = engine.coverage_by_community(state, cfg, *rec).tolist()
+        got[f"block{c}_meta{rec[2]}"] = cov
+        if not cov[c] > 0 or any(v != 0 for i, v in enumerate(cov)
+                                 if i != c):
+            fail(f"communities8: record {rec} of block {c} covers {cov}")
+    if len(recs) != 2 * cfg.n_communities:
+        fail(f"communities8: {len(recs)} records, expected "
+             f"{2 * cfg.n_communities}: {recs}")
+    return got
+
+
+def checkpoint_phase(state, cfg, creates, rnd: int) -> dict:
+    """The 1M state saved (``checkpoint.save``), restored on the card and
+    stepped ``CKPT_ROUNDS`` rounds beside the original (each with its
+    round's creates), equal on every leaf after the restore and after
+    every round.  Returns the archive's bytes and the save and restore
+    seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dispersy_tpu_torch import checkpoint, engine
+    from dispersy_tpu_torch.bridge import assert_states_equal
+    from dispersy_tpu_torch.profiling import run_creates
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, state, cfg)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    assert_states_equal(back, state, "checkpoint restore")
+    a, b = state, back
+    for r in range(rnd, rnd + CKPT_ROUNDS):
+        a = engine.step(run_creates(a, cfg, creates, r), cfg)
+        b = engine.step(run_creates(b, cfg, creates, r), cfg)
+        assert_states_equal(b, a, f"restored state, round {r}")
+    out = {"archive_bytes": size, "save_s": save_s, "restore_s": restore_s,
+           "stepped_equal_rounds": CKPT_ROUNDS}
+    print(f"checkpoint {cfg.n_peers} peers: " + json.dumps(out), flush=True)
+    return out
+
+
+def scenario_phase() -> dict:
+    """``examples/soak_all_features.json`` (512 peers, 600 rounds) through
+    ``scenario.run`` on the card with an autosave every
+    ``SCN_AUTOSAVE`` rounds; a run resumed from the round-``SCN_RESUME``
+    autosave (past the unload at 250 and the load at 330) must end
+    bit-identical in its final state and metrics log; the first
+    ``SCN_CPU_ROUNDS`` rounds must equal the port's CPU run on every leaf
+    and every metrics row (the two mean fills within a few ulps)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from dispersy_tpu_torch import checkpoint
+    from dispersy_tpu_torch import scenario as scn
+    from dispersy_tpu_torch.bridge import assert_states_equal
+    cfg, sc = scn.load(str(ROOT / "examples" / "soak_all_features.json"))
+    out = {"n_peers": cfg.n_peers, "rounds": sc.rounds}
+    with tempfile.TemporaryDirectory() as d:
+        full, crashed = os.path.join(d, "full"), os.path.join(d, "crashed")
+        # A checkpoint event (it leaves the state alone) keeps the state
+        # after the first SCN_CPU_ROUNDS rounds for the CPU comparison.
+        early = os.path.join(d, "early.npz")
+        t0 = time.perf_counter()
+        st, log = scn.run(cfg, dataclasses.replace(
+            sc, autosave_every=SCN_AUTOSAVE, autosave_dir=full,
+            events=[*sc.events, (SCN_CPU_ROUNDS, scn.Checkpoint(early))]),
+            SEED)
+        out["run_s"] = time.perf_counter() - t0
+        g = checkpoint.restore(early, cfg, device="cuda")
+        os.makedirs(crashed)
+        for name in os.listdir(full):
+            if int(name.split(".")[0][len(scn.AUTOSAVE_PREFIX):]) \
+                    <= SCN_RESUME:
+                shutil.copy(os.path.join(full, name), crashed)
+        t0 = time.perf_counter()
+        rs, rlog = scn.run(cfg, dataclasses.replace(
+            sc, autosave_every=SCN_AUTOSAVE, autosave_dir=crashed), SEED,
+            resume=True)
+        out["resume_s"] = time.perf_counter() - t0
+    assert_states_equal(rs, st, f"scenario resumed at {SCN_RESUME}")
+    if rlog.rows != log.rows:
+        fail("scenario: the resumed run's metrics log differs")
+    short = dataclasses.replace(sc, rounds=SCN_CPU_ROUNDS, events=[
+        (r, e) for r, e in sc.events if r < SCN_CPU_ROUNDS])
+    c, clog = scn.run(cfg, short, SEED, device="cpu")
+    assert_states_equal(g, c, f"scenario, {SCN_CPU_ROUNDS} rounds card/cpu")
+    for gr, cr in zip(log.rows[:SCN_CPU_ROUNDS], clog.rows, strict=True):
+        for k, v in gr.items():
+            same = (abs(v - cr[k]) <= 1e-6 * abs(cr[k])
+                    if k in ("store_fill", "candidate_fill") else v == cr[k])
+            if not same:
+                fail(f"scenario row {gr['round']}: {k} {v} on the card, "
+                     f"{cr[k]} on the cpu")
+    last = log.rows[-1]
+    out.update({k: v for k, v in last.items() if k.startswith("cov_")})
+    out["loaded_30_34"] = bool(st.loaded[30:35].all())
+    print("scenario: " + json.dumps(out), flush=True)
+    return out
+
+
+def soak_lifecycle(cfg, seed: int):
+    """The soak path's lifecycle checks: ``(after, finish)`` for
+    :func:`main_phase`.  ``after`` keeps the reloaded rows' walk counts
+    before the load; ``finish`` fails unless the unloaded rows that churn
+    did not rebirth stayed unloaded with empty instance memory, and the
+    reloaded ones are loaded and walked again."""
+    import torch
+
+    from dispersy_tpu_torch.profiling import R_LOAD, soak_roles
+    from dispersy_tpu_torch.state import (INSTANCE_MEMORY_FIELDS,
+                                          wipe_instance_memory)
+    roles = soak_roles(cfg.n_peers, seed)
+    kept = {}
+
+    def after(rnd, state):
+        if rnd == R_LOAD - 1:
+            kept["walks"] = state.stats.walk_success.view(torch.int32).clone()
+
+    def finish(state):
+        dev = state.device
+        fresh = state.session.view(torch.int32) == 0
+        unl = torch.from_numpy(roles["unloaded"]).to(dev)
+        rel = torch.from_numpy(roles["reloaded"]).to(dev)
+        stayed, back = unl & ~rel & fresh, rel & fresh
+        if not bool(stayed.any()) or bool(state.loaded[stayed].any()):
+            fail("soak main path: an unloaded row loaded again")
+        wiped = wipe_instance_memory(state, stayed)
+        full = [nm for nm, _ in INSTANCE_MEMORY_FIELDS
+                if getattr(state, nm).dim()
+                and getattr(state, nm).shape[0] == cfg.n_peers
+                and not torch.equal(getattr(wiped, nm).view(torch.uint8),
+                                    getattr(state, nm).view(torch.uint8))]
+        if full:
+            fail(f"soak main path: unloaded rows hold instance memory {full}")
+        walks = state.stats.walk_success.view(torch.int32)
+        walked = int((walks[back] > kept["walks"][back]).sum())
+        if not bool(state.loaded[back].all()) or not walked:
+            fail("soak main path: the reloaded rows do not walk again")
+        out = {"unloaded_dark": int(stayed.sum()),
+               "reloaded": int(back.sum()), "reloaded_walked": walked}
+        print("soak lifecycle: " + json.dumps(out), flush=True)
+        return out
+    return after, finish
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2238,7 +2809,10 @@ def main() -> int:
     from dispersy_tpu_torch.metrics import snapshot
     from dispersy_tpu_torch.planes import FaultModel
     from dispersy_tpu_torch.profiling import (POST, SEQ_TEXT, bench_config,
-                                              chaos_config, hardened_config,
+                                              chaos_config,
+                                              communities_config,
+                                              communities_schedule,
+                                              hardened_config,
                                               hardened_schedule,
                                               observed_config,
                                               observed_schedule,
@@ -2279,7 +2853,9 @@ def main() -> int:
                            REPS)
             + kernel_phase(chaos, CHAOS_KERNEL_CHECKS, "chaos", SEED, REPS)
             + kernel_phase(chaos_flat, CHAOS_FLAT_KERNEL_CHECKS,
-                           "chaos_flat", SEED, REPS))
+                           "chaos_flat", SEED, REPS)
+            + kernel_phase(communities_config(COMM_PEERS),
+                           COMM_KERNEL_CHECKS, "communities8", SEED, REPS))
     print(f"kernels checked ({time.perf_counter() - t_start:.1f} s)",
           flush=True)
     parity_phase(slice_config(PARITY_PEERS), SEED, PARITY_ROUNDS,
@@ -2328,6 +2904,10 @@ def main() -> int:
     check_soak_parity(parity_phase(
         soak_config(PARITY_PEERS), SEED, SOAK_PARITY_ROUNDS,
         soak_schedule(PARITY_PEERS, SEED)))
+    comm_p = communities_config(PARITY_PEERS)
+    print("parity communities8: " + json.dumps(comm_blocks(parity_phase(
+        comm_p, SEED, COMM_PARITY_ROUNDS, communities_schedule(PARITY_PEERS)),
+        comm_p)), flush=True)
     one = one_record_schedule(N_PEERS)
     mains = {
         "diet": main_phase(diet, "diet", DIET_PATH, SEED, DIET_WARMUP,
@@ -2390,14 +2970,39 @@ def main() -> int:
     # The coverage that must grow is the founder's first grant's (its
     # clock claims 2 for its identity, 3 for this one).
     soak = soak_config(N_PEERS)
+    after, finish = soak_lifecycle(soak, SEED)
     with SoakCapture(soak) as cap:
         mains["soak"] = main_phase(
             soak, "soak", SOAK_PATH, SEED, SOAK_WARMUP, SOAK_ROUNDS,
             soak_schedule(N_PEERS, SEED),
             (soak.founder, 3, 0xF0, int(soak_roles(N_PEERS, SEED)[
                 "grantees"][0])),
-            channels=SOAK_CHANNELS)
+            channels=SOAK_CHANNELS, after=after, finish=finish)
     rows += check_soak_kernels(cap, REPS)
+    # Config #5, the last call of each kernel call shape of its rounds
+    # captured (checked and timed after it); its final state goes
+    # through the checkpoint.
+    # The coverage printed is block 0's first public post's; the spread
+    # that must grow, the blocks' protected records'.
+    comm = communities_config(COMM_PEERS)
+    comm_creates = communities_schedule(COMM_PEERS)
+    with KernelCapture() as kcap:
+        def before(rnd):
+            kcap.on = True
+
+        def after(rnd, state):
+            kcap.on = False
+
+        def finish(state):
+            return {"blocks": comm_blocks(state, comm),
+                    "checkpoint": checkpoint_phase(state, comm, comm_creates,
+                                                   WARMUP + ROUNDS)}
+        mains["communities8"] = main_phase(
+            comm, "communities8", COMM_PATH, SEED, WARMUP, ROUNDS,
+            comm_creates, comm_record(comm), spread=comm_spread(comm),
+            before=before, after=after, finish=finish)
+    rows += check_comm_kernels(kcap, comm, REPS)
+    scenario_phase()
     for row in rows:
         row["launches"] = mains[row.pop("_path")]["launches"][
             row.pop("_kernel")]

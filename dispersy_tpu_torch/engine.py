@@ -1,5 +1,5 @@
-"""The round engine: one walker interval for every peer (port of the
-legacy-store and byte-diet rounds of ``dispersy_tpu/engine.py``).
+"""The round engine: one walker interval for every peer (port of
+``dispersy_tpu/engine.py``).
 
 ``step(state, cfg)`` advances all peers one round, phase by phase in the
 JAX package's order (its phase markers are kept below): churn, walker
@@ -11,9 +11,13 @@ the pen's rebuild, wrap-up.  Every random choice is a counter hash
 (:mod:`ops.rng`), so the port equals ``dispersy_tpu.engine.step`` on
 every leaf.
 
-The slice covers every feature of one community (:func:`check_slice`
-refuses several): the permission engine -- the Timeline (authorize /
-revoke with delegation chains, DynamicResolution flips, undo-own and
+Every field of ``CommunityConfig`` runs.  Several communities
+(``cfg.communities``) share the row axis as contiguous blocks -- the
+trackers first, block by block, then each block's members -- and each
+row walks, bootstraps, seeds its overlay, takes countersigners and
+answers to a founder (the block's first member row) inside its own block
+(:func:`_layout_cols`).  The permission engine: the Timeline (authorize
+/ revoke with delegation chains, DynamicResolution flips, undo-own and
 undo-other, destroy, and the retroactive re-walk after a revoke) on the
 legacy ring, LastSync keep-last-k, and per-meta priorities and DESC
 sync; the hardened intake: double-sign conviction with malicious-proof
@@ -26,17 +30,17 @@ for the proof, the missing range, the target or the identity
 (:func:`_pen_channel`), whose replies join the round's intake;
 double-signed metas (``create_signature_request``, the countersign
 exchange, both signers' permits and identities) and direct metas
-(received and counted, never stored or forwarded); the chaos planes:
-the fault model (the Gilbert–Elliott channel, partitions, duplication,
-corruption, flooders, the health sentinels), the recovery pass,
-overload's token buckets and priority admission, and the parallel plane
-(the shard-local ragged exchange with its capped push buckets,
-:func:`_deliver`); the telemetry plane (the packed per-round row, its
-device ring, the histograms and the flight recorder) and the
+(received and counted, never stored or forwarded); the community
+lifecycle (:func:`unload_members`, :func:`load_members`, ``auto_load``);
+the chaos planes: the fault model (the Gilbert–Elliott channel,
+partitions, duplication, corruption, flooders, the health sentinels),
+the recovery pass, overload's token buckets and priority admission, and
+the parallel plane (the shard-local ragged exchange with its capped push
+buckets, :func:`_deliver`); the telemetry plane (the packed per-round
+row, its device ring, the histograms and the flight recorder) and the
 dissemination-tracing plane (per tracked record and peer, the first
 arrival, its channel and the duplicates; coverage latches);
-symmetric-NAT members (``p_symmetric``).  Several communities raise
-``NotImplementedError`` before a round starts.  The store is the
+symmetric-NAT members (``p_symmetric``).  The store is the
 legacy ring (merged every round) or the byte-diet store (``store.staging
 > 0``, :mod:`storediet`): arrivals land in a staging buffer, and with the
 sync exchange the Bloom claim is a persistent digest salted with an
@@ -102,7 +106,8 @@ from dispersy_tpu_torch.ops import timeline as tl
 from dispersy_tpu_torch.ops import trace as trc
 from dispersy_tpu_torch.ops.hashing import record_hash
 from dispersy_tpu_torch.planes import NUM_HEALTH_BITS
-from dispersy_tpu_torch.state import FLAG_UNDONE, NEVER, PeerState
+from dispersy_tpu_torch.state import (FLAG_UNDONE, NEVER, PeerState,
+                                      wipe_instance_memory)
 from dispersy_tpu_torch.u32 import (MASK, bits, cast, narrow, narrow16,
                                     unbits, wide, zeros)
 
@@ -141,15 +146,6 @@ _MALICIOUS_COUNTERS = ("conflicts", "convictions_rx")
 # ... and the chaos planes'.
 _OVERLOAD_COUNTERS = ("msgs_shed_rate", "msgs_shed_priority")
 _RECOVERY_COUNTERS = ("recov_soft", "recov_backoff", "recov_quarantine")
-
-
-def check_slice(cfg: CommunityConfig) -> None:
-    """Raise ``NotImplementedError`` when ``cfg`` is off the ported slice:
-    several communities."""
-    if cfg.communities:
-        raise NotImplementedError(
-            "CommunityConfig.communities is off the ported slice (one "
-            "community)")
 
 
 class _EffFaults(NamedTuple):
@@ -463,8 +459,10 @@ def _auth(state: PeerState) -> tl.AuthTable:
 
 
 def _founder_col(cfg: CommunityConfig, dev) -> torch.Tensor:
-    """u32[N]: the founder each row answers to (one community:
-    ``cfg.founder``)."""
+    """u32[N]: the founder each row's community answers to: with several
+    communities each block's first member row, else ``cfg.founder``."""
+    if cfg.communities:
+        return narrow(_layout_cols(cfg, dev)[2].to(torch.int64))
     return _u32(cfg.founder, dev).expand(cfg.n_peers)
 
 
@@ -732,14 +730,36 @@ def _round_host(state: PeerState) -> int:
     return int(state.round_index.view(torch.int32).item()) & MASK
 
 
-def _layout_cols(cfg: CommunityConfig, dev):
-    """Per-row (boot_base, boot_count, mem_base, mem_count), single
-    community: the global tracker and member ranges."""
+def _layout_cols(cfg: CommunityConfig, dev, idx=None):
+    """Per-row (boot_base, boot_count, mem_base, mem_count) int32 columns
+    of the rows ``idx`` (int64, default every row).  One community: the
+    global tracker and member ranges.  Several: each row's own block,
+    found by ``searchsorted(..., right=True)`` over the block boundaries
+    (trackers first, block by block, then each block's members), as
+    ``CommunityConfig.layout()`` lays them out."""
     n, t = cfg.n_peers, cfg.n_trackers
+    if not cfg.communities:
+        def full(v):
+            return torch.full((n,) if idx is None else idx.shape, v,
+                              dtype=torch.int32, device=dev)
+        return full(0), full(t), full(t), full(n - t)
+    if idx is None:
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+    t_c = [tc for _, tc in cfg.communities]
+    m_c = [mc for mc, _ in cfg.communities]
+    t_cum, m_cum = [0], [t]
+    for a, b in zip(t_c, m_c):
+        t_cum.append(t_cum[-1] + a)
+        m_cum.append(m_cum[-1] + b)
 
-    def full(v):
-        return torch.full((n,), v, dtype=torch.int32, device=dev)
-    return full(0), full(t), full(t), full(n - t)
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    rows = idx.to(torch.int32)
+    comm = torch.where(
+        rows < t, torch.searchsorted(i32(t_cum[1:]), rows, right=True),
+        torch.searchsorted(i32(m_cum[1:]), rows, right=True))
+    return (i32(t_cum[:-1])[comm], i32(t_c)[comm], i32(m_cum[:-1])[comm],
+            i32(m_c)[comm])
 
 
 def _req_bytes_in(req_bytes, ok: torch.Tensor,
@@ -876,7 +896,6 @@ def step(state: PeerState, cfg: CommunityConfig,
     if phase not in (None, "sync", "quiet"):
         raise ValueError(f"unknown step phase {phase!r}: expected 'sync', "
                          "'quiet' or None")
-    check_slice(cfg)
     if not cfg.store_diet:
         return _step_impl(state, cfg, "sync", None)
     rnd = _round_host(state)
@@ -885,7 +904,6 @@ def step(state: PeerState, cfg: CommunityConfig,
 
 def multi_step(state: PeerState, cfg: CommunityConfig, k: int) -> PeerState:
     """Advance ``k`` rounds along the cadence (one host read in all)."""
-    check_slice(cfg)
     rnd = _round_host(state) if cfg.store_diet else None
     for _ in range(k):
         if rnd is None:
@@ -1060,7 +1078,7 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
     # ---- phase 1: walker send ------------------------------------------
     # dispersy_get_walk_candidate + create_introduction_request; trackers
     # never walk.
-    boot_base, boot_count, _, _ = _layout_cols(cfg, dev)
+    boot_base, boot_count, mem_base, mem_count = _layout_cols(cfg, dev)
     if cfg.walker_enabled:
         target = cand.sample_walk_target(tab, now, cfg, seed, rnd, idx,
                                          boot_base, boot_count)
@@ -1856,13 +1874,14 @@ def _step_impl(state: PeerState, cfg: CommunityConfig, phase: str,
         if cfg.double_meta_mask:
             # The structural signature check of a double-signed record
             # (completed here or synced): its countersigner in aux is
-            # another, non-tracker member of the community.
+            # another member of the receiver's community.
             im = in_meta.to(torch.int64)
             is_dbl = ((((cfg.double_meta_mask >> im.clamp(max=31)) & 1) == 1)
                       & (im < cfg.n_meta))
             a_w = wide(in_aux)
-            dbl_ok = ((bits(in_aux) != bits(in_member)) & (a_w >= t)
-                      & (a_w < n))
+            dbl_ok = ((bits(in_aux) != bits(in_member))
+                      & (a_w >= mem_base[:, None])
+                      & (a_w < (mem_base + mem_count)[:, None]))
             in_ok = in_ok & torch.where(is_dbl, dbl_ok, True)
         if mal_on:
             # Double-sign conviction: an arrival matching a stored
@@ -2480,7 +2499,6 @@ def create_messages(state: PeerState, cfg: CommunityConfig,
     A double-signed meta is refused (only :func:`create_signature_request`
     makes one); a direct meta's record is pushed and stored nowhere.
     """
-    check_slice(cfg)
     control = meta in (META_AUTHORIZE, META_REVOKE, META_UNDO_OWN,
                        META_UNDO_OTHER, META_DYNAMIC, META_DESTROY)
     if control and not cfg.timeline_enabled:
@@ -2621,24 +2639,24 @@ def create_signature_request(state: PeerState, cfg: CommunityConfig,
     ``counterparty`` (int [N]) is each author's second signer.  A request
     is refused (no side effect) when the author is dead, unloaded, a
     tracker or hard-killed, already has one in flight, names itself, a
-    tracker or a peer outside the community, or -- for a meta
+    tracker or a peer outside the author's community, or -- for a meta
     LinearResolution at the draft's gt -- lacks the permit in its own
     table.  Raises ``ValueError`` for a meta that is not double-signed.
     """
-    check_slice(cfg)
     if not (meta < cfg.n_meta and (cfg.double_meta_mask >> meta) & 1):
         raise ValueError(f"meta {meta} is not double-signed "
                          f"(double_meta_mask={cfg.double_meta_mask:#x})")
-    n, t = cfg.n_peers, cfg.n_trackers
+    n = cfg.n_peers
     dev = state.device
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     cp = torch.as_tensor(counterparty, device=dev).to(torch.int64).reshape(n)
     payload = wide(torch.as_tensor(payload, device=dev)).reshape(n)
     gt_new = wide(state.global_time) + 1
+    _, _, mem_base, mem_count = _layout_cols(cfg, dev)
     ok = (torch.as_tensor(author_mask, device=dev).to(torch.bool)
           & state.alive & state.loaded & ~state.is_tracker
-          & (state.sig_target == NO_PEER) & (cp != idx) & (cp >= t)
-          & (cp < n))
+          & (state.sig_target == NO_PEER) & (cp != idx) & (cp >= mem_base)
+          & (cp < mem_base + mem_count))
     if cfg.timeline_enabled:
         ok = ok & ~killed_mask(state.store_meta)
         if ((cfg.protected_meta_mask | cfg.dynamic_meta_mask) >> meta) & 1:
@@ -2705,13 +2723,15 @@ def _author_allowed(state: PeerState, cfg: CommunityConfig, meta: int,
 def overlay_draw(key: torch.Tensor, cfg: CommunityConfig, rows: torch.Tensor,
                  degree: int) -> torch.Tensor:
     """int32 [len(rows), degree]: the neighbours :func:`seed_overlay`
-    gives the peers ``rows`` under the state key ``key`` (int64 carrier
-    pair), ``NO_PEER`` where a draw repeats an earlier one."""
-    n, t = cfg.n_peers, cfg.n_trackers
+    gives the peers ``rows`` (int64) under the state key ``key`` (int64
+    carrier pair), each drawn inside its row's own member block,
+    ``NO_PEER`` where a draw repeats an earlier one."""
     dev = rows.device
     seed = rng.fold_seed(key)
     j = torch.arange(degree, device=dev)[None, :]
-    base, span = t, max(n - t, 1)
+    _, _, mem_base, mem_count = _layout_cols(cfg, dev, rows)
+    base = mem_base.to(torch.int64)[:, None]
+    span = mem_count.to(torch.int64).clamp(min=1)[:, None]
     nbr = base + rng.rand_u32(seed, 0xE1, rows[:, None], rng.P_GOSSIP,
                               j) % span
     nbr = torch.where(nbr == rows[:, None], base + (nbr - base + 1) % span,
@@ -2726,8 +2746,8 @@ def overlay_draw(key: torch.Tensor, cfg: CommunityConfig, rows: torch.Tensor,
 def seed_overlay(state: PeerState, cfg: CommunityConfig,
                  degree: int) -> PeerState:
     """Pre-seed every peer's candidate table with ``degree`` random walked
-    member neighbours, stamped immediately eligible (a duplicate draw
-    leaves its slot empty)."""
+    member neighbours of its own community, stamped immediately eligible
+    (a duplicate draw leaves its slot empty)."""
     n, t = cfg.n_peers, cfg.n_trackers
     if not 0 <= degree <= cfg.k_candidates:
         raise ValueError(f"degree {degree} must be in [0, k_candidates="
@@ -2735,8 +2755,9 @@ def seed_overlay(state: PeerState, cfg: CommunityConfig,
     if n - t <= 1:
         raise ValueError("need at least two non-tracker peers to seed an "
                          "overlay")
-    if cfg.communities:
-        raise NotImplementedError("communities are off the ported slice")
+    if cfg.communities and not all(m > 1 for m, _ in cfg.communities):
+        raise ValueError("every community needs at least two members to "
+                         "seed an overlay")
     dev = state.device
     nbr = overlay_draw(wide(state.key), cfg,
                        torch.arange(n, dtype=torch.int64, device=dev), degree)
@@ -2760,11 +2781,10 @@ def seed_overlay(state: PeerState, cfg: CommunityConfig,
         cand_last_intro=_cand_quant(never_k(), cfg))
 
 
-def coverage(state: PeerState, member: int, gt: int, meta: int,
-             payload: int) -> torch.Tensor:
-    """f32: fraction of alive non-tracker peers whose store holds the
-    record (the convergence metric).  The store is the ring and, under
-    the byte diet, the staging buffer too."""
+def _holds_record(state: PeerState, member: int, gt: int, meta: int,
+                  payload: int) -> torch.Tensor:
+    """bool[N]: whose store -- the ring and, under the byte diet, the
+    staging buffer -- holds the record."""
     def holds(g, m, t, p):
         return ((wide(g) == gt) & (wide(m) == member)
                 & (t.to(torch.int64) == meta)
@@ -2774,10 +2794,59 @@ def coverage(state: PeerState, member: int, gt: int, meta: int,
     if state.sta_gt.shape[1]:
         has = has | holds(state.sta_gt, state.sta_member, state.sta_meta,
                           state.sta_payload)
+    return has
+
+
+def coverage(state: PeerState, member: int, gt: int, meta: int,
+             payload: int) -> torch.Tensor:
+    """f32: fraction of alive non-tracker peers whose store holds the
+    record (the convergence metric)."""
     syncing = state.alive & ~state.is_tracker
-    num = (has & syncing).sum().to(torch.float32)
+    num = (_holds_record(state, member, gt, meta, payload)
+           & syncing).sum().to(torch.float32)
     den = syncing.sum().clamp(min=1).to(torch.float32)
     return num / den
+
+
+def coverage_by_community(state: PeerState, cfg: CommunityConfig,
+                          member: int, gt: int, meta: int,
+                          payload: int) -> torch.Tensor:
+    """f32 [C]: per community, the fraction of its alive members holding
+    the record (:func:`coverage` block by block; a record authored in
+    one block lives in no other)."""
+    dev = state.device
+    comm = torch.from_numpy(cfg.layout()[0]).to(dev)
+    syncing = state.alive & ~state.is_tracker
+    has = _holds_record(state, member, gt, meta, payload) & syncing
+    out = []
+    for c in range(cfg.n_communities):
+        in_c = comm == c
+        out.append((has & in_c).sum().to(torch.float32)
+                   / (syncing & in_c).sum().clamp(min=1).to(torch.float32))
+    return torch.stack(out)
+
+
+def unload_members(state: PeerState, cfg: CommunityConfig,
+                   mask) -> PeerState:
+    """Unload the community instance on the masked peers: ``loaded`` off
+    and the instance memory (:data:`state.INSTANCE_MEMORY_FIELDS`: the
+    candidate table, the forward buffer, the blacklist, the delay pen,
+    the signature cache) wiped, while the store persists.  Tracker rows
+    are left out of the mask.  A peer loads again by an arriving
+    community packet under ``cfg.auto_load``, by :func:`load_members`,
+    or by churn rebirth."""
+    n, dev = cfg.n_peers, state.device
+    mj = (torch.as_tensor(mask, device=dev).to(torch.bool).reshape(n)
+          & (torch.arange(n, device=dev) >= cfg.n_trackers))
+    state = wipe_instance_memory(state, mj)
+    return state.replace(loaded=state.loaded & ~mj)
+
+
+def load_members(state: PeerState, mask) -> PeerState:
+    """Load the community instance on the masked peers again; they walk
+    anew from the trackers (candidates are not kept)."""
+    m = torch.as_tensor(mask, device=state.device).to(torch.bool)
+    return state.replace(loaded=m.reshape(state.loaded.shape) | state.loaded)
 
 
 def track_record(state: PeerState, cfg: CommunityConfig, author: int,

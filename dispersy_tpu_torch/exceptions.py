@@ -11,3 +11,9 @@ class ConfigError(ValueError):
 class KernelError(RuntimeError):
     """A hand-written kernel refused its inputs, failed to build or failed
     to launch (kernels/__init__.py)."""
+
+
+class CheckpointError(ValueError):
+    """A checkpoint that cannot be restored: version or config mismatch,
+    missing leaves, shape conflicts, a failed CRC or a torn archive
+    (checkpoint.py)."""

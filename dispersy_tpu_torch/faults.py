@@ -120,3 +120,29 @@ def debug_validate(state, cfg, raise_on_error: bool = False) -> list:
     if raise_on_error and problems:
         raise AssertionError("debug_validate: " + "; ".join(problems))
     return problems
+
+
+def adapt_state(state, old_cfg, new_cfg):
+    """Resize the chaos harness's leaves across a fault-model swap:
+    ``health``, ``ge_bad`` and ``stats.msgs_corrupt_dropped`` are
+    zero-width while their feature is off, so a swap that turns one on
+    starts it clean and one that turns it off drops it.  Every other
+    leaf passes through."""
+    import torch
+
+    from dispersy_tpu_torch.u32 import zeros
+    n, dev = new_cfg.n_peers, state.device
+    of, nf = old_cfg.faults, new_cfg.faults
+    upd = {}
+    if of.health_checks != nf.health_checks:
+        upd["health"] = zeros((n if nf.health_checks else 0,), torch.uint32,
+                              dev)
+    if of.ge_enabled != nf.ge_enabled:
+        upd["ge_bad"] = torch.zeros((n if nf.ge_enabled else 0,),
+                                    dtype=torch.bool, device=dev)
+    old_c = of.corrupt_rate > 0.0 or of.flood_enabled
+    new_c = nf.corrupt_rate > 0.0 or nf.flood_enabled
+    if old_c != new_c:
+        upd["stats"] = state.stats.replace(msgs_corrupt_dropped=zeros(
+            (n if new_c else 0,), torch.uint32, dev))
+    return state.replace(**upd) if upd else state

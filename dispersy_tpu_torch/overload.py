@@ -50,3 +50,24 @@ def overload_report(state, cfg, top: int = 4) -> dict:
     else:
         out["top_shed_senders"] = []
     return out
+
+
+def adapt_state(state, old_cfg, new_cfg):
+    """Resize the overload plane's leaves across a flip of
+    ``overload.enabled`` (turned on: empty buckets and zero shed
+    counters; turned off: dropped), and the telemetry row with them; any
+    other swap passes the state through."""
+    import torch
+
+    from dispersy_tpu_torch.telemetry import adapt_row_leaves
+    from dispersy_tpu_torch.u32 import zeros
+    if old_cfg.overload.enabled == new_cfg.overload.enabled:
+        return state
+    n = new_cfg.n_peers if new_cfg.overload.enabled else 0
+    dev = state.device
+    state = state.replace(
+        bucket=torch.zeros((n,), dtype=torch.uint8, device=dev),
+        stats=state.stats.replace(
+            msgs_shed_rate=zeros((n,), torch.uint32, dev),
+            msgs_shed_priority=zeros((n,), torch.uint32, dev)))
+    return adapt_row_leaves(state, old_cfg, new_cfg)

@@ -1,7 +1,8 @@
 """The bench shape (port of ``bench_config`` in ``dispersy_tpu/profiling.py``),
 the permissioned, the hardened and the soak communities, the chaos round
-and the observed round (telemetry and tracing) at that shape, the
-schedules that drive them, and the card's profile of a main path.
+and the observed round (telemetry and tracing) at that shape, config #5
+(8 communities with the Timeline), the schedules that drive them, and
+the card's profile of a main path.
 
 Only the config builder is ported: the JAX module's cost-analysis
 helpers price XLA executables and have no counterpart here.
@@ -140,6 +141,116 @@ def syncless_config(n_peers: int) -> CommunityConfig:
     cfg = bench_config(n_peers)
     return cfg.replace(sync_enabled=False,
                        store=dataclasses.replace(cfg.store, cohorts=1))
+
+
+def communities_config(n_peers: int) -> CommunityConfig:
+    """Config #5 of the baseline (``BASELINE.md``: 1M peers in 8
+    overlapping communities with full sync and the Timeline's permission
+    checks), as the JAX package's convergence tool builds it
+    (``tools/convergence.py:284-296``): ``n_peers // 8`` rows a block,
+    each one tracker and the rest members (all trackers first); 16
+    candidates, store slots and Bloom records; request inbox 8, tracker
+    inbox ``max(64, n_c // 64)``, response budget 8; meta 1 protected of
+    8, 8 grant slots, a 2-slot delay pen; the legacy ring (the Timeline
+    refuses the byte-diet store)."""
+    n_c = n_peers // 8
+    return CommunityConfig(
+        n_peers=n_c * 8, n_trackers=8, communities=((n_c - 1, 1),) * 8,
+        k_candidates=16, msg_capacity=16, bloom_capacity=16,
+        request_inbox=8, tracker_inbox=max(64, n_c // 64),
+        response_budget=8, timeline_enabled=True, protected_meta_mask=0b10,
+        n_meta=8, k_authorized=8, delay_inbox=2)
+
+
+COMM_GRANT_ROUNDS = (0, 1, 2)   # the founders' grants, one a round
+R_COMM_PROTECTED = 4   # the grantees' protected records, retried until made
+R_COMM_POSTS = 5       # the public posts: after the protected records
+R_COMM_LAST = 19       # the last round of the retries
+
+
+class CreateMissing(NamedTuple):
+    """``create_messages`` of ``meta`` before ``step`` of ``round`` by each
+    masked author whose own store holds no record of its own of that
+    meta yet (the convergence tool's retry of a create that the author
+    gate refused because the grant had not reached the author)."""
+    round: int
+    meta: int
+    authors: np.ndarray      # bool[N]
+    payload: np.ndarray      # uint32[N]
+
+
+def communities_roles(n_peers: int, seed: int = 0, degree: int = 8) -> dict:
+    """Each block's founder (its first member row) and grantee: the
+    founder's first neighbour that ``engine.seed_overlay(state, cfg,
+    degree)`` gives under ``seed`` (peer ids, block order)."""
+    import torch
+
+    from dispersy_tpu_torch.engine import overlay_draw
+    from dispersy_tpu_torch.state import seed_key
+    cfg = communities_config(n_peers)
+    founders = sorted({int(b) for b in cfg.layout()[3]})
+    nbr = overlay_draw(torch.tensor(seed_key(seed), dtype=torch.int64), cfg,
+                       torch.tensor(founders), degree).numpy()
+    return {"founders": founders,
+            "grantees": [int(r[r >= 0][0]) for r in nbr]}
+
+
+def communities_schedule(n_peers: int, seed: int = 0,
+                         degree: int = 8) -> list:
+    """Config #5's creates.  Before rounds 0, 1 and 2 each block's
+    founder grants its grantee (:func:`communities_roles`) the permit on
+    meta 1, as ``tools/convergence.py:297-311`` grants the founder's next
+    row once: a neighbour of the founder, granted three times (as
+    :func:`soak_schedule` grants), so that the grant reaches it within
+    the 3 + 5 rounds of a 1M run (a block there holds 124,999 members).
+    From round :data:`R_COMM_PROTECTED` each grantee posts its protected
+    record (meta 1, payload its id) before the round's step, retried
+    every round (:class:`CreateMissing`) until it holds it, as the
+    convergence tool retries.  Before round :data:`R_COMM_POSTS` every
+    64th peer (``idx % 64 == 63``, as ``bench.py`` drives its config #5
+    secondary) posts a public record (meta 0, payload its id): after the
+    protected records, because a store keeps its 16 lowest global times
+    and the posts of authors who have seen nothing carry gt 2, below any
+    grantee's record -- posted first, they evict it from every store."""
+    cfg = communities_config(n_peers)
+    n = cfg.n_peers
+    roles = communities_roles(n_peers, seed, degree)
+    idx = np.arange(n, dtype=np.uint32)
+    zero = np.zeros(n, np.uint32)
+    founders = np.zeros(n, bool)
+    founders[roles["founders"]] = True
+    grantee_of = np.zeros(n, np.uint32)
+    grantee_of[roles["founders"]] = roles["grantees"]
+    grantees = np.zeros(n, bool)
+    grantees[roles["grantees"]] = True
+    return ([Create(r, META_AUTHORIZE, founders, grantee_of,
+                    np.where(founders, perm_bit(1, "permit"), 0).astype(
+                        np.uint32)) for r in COMM_GRANT_ROUNDS]
+            + [Create(R_COMM_POSTS, 0, idx % 64 == 63, idx, zero)]
+            + [CreateMissing(r, 1, grantees, idx)
+               for r in range(R_COMM_PROTECTED, R_COMM_LAST + 1)])
+
+
+def communities_records(state, cfg: CommunityConfig, seed: int = 0,
+                        degree: int = 8) -> list:
+    """``[(block, (member, gt, meta, payload))]`` of
+    :func:`communities_schedule`'s records in ``state``: each block's
+    protected record (once its grantee made it) and the first public post
+    of its members, the gt read from the author's own store."""
+    import torch
+
+    from dispersy_tpu_torch.u32 import wide
+    roles = communities_roles(cfg.n_peers, seed, degree)
+    out = []
+    for c, (f, g) in enumerate(zip(roles["founders"], roles["grantees"])):
+        for author, meta in ((g, 1), (f + (63 - f) % 64, 0)):
+            row = slice(author, author + 1)
+            own = ((wide(state.store_member[row]) == author)
+                   & (state.store_meta[row].to(torch.int64) == meta))
+            gts = wide(state.store_gt[row])[own].tolist()
+            if gts:
+                out.append((c, (author, gts[0], meta, author)))
+    return out
 
 
 def permissioned_roles(n_peers: int) -> dict:
@@ -339,11 +450,11 @@ def soak_config(n_peers: int) -> CommunityConfig:
     dynamic and 8 table slots; the delay pen (3 slots) with missing-proof
     requests; meta 3 double-signed; meta 4 sequenced with missing-
     sequence requests; double-sign conviction with gossip; a 30%
-    symmetric-NAT share, 3% churn and 10% loss -- and the three knobs
-    that file leaves off: missing-message requests, the identity gate
-    with missing-identity requests, and meta 5 direct.  The file's
-    ``auto_load`` and its unload / load events belong to the community
-    rim and are left out (its ``auto_load`` is off, the default)."""
+    symmetric-NAT share, 3% churn and 10% loss; ``auto_load`` off (an
+    unloaded member loads again only by an explicit load or a rebirth)
+    -- and the three knobs that file leaves off: missing-message
+    requests, the identity gate with missing-identity requests, and
+    meta 5 direct."""
     return slice_config(n_peers).replace(
         n_meta=8, timeline_enabled=True, protected_meta_mask=0b10,
         dynamic_meta_mask=0b10, k_authorized=8, delay_inbox=3,
@@ -352,7 +463,7 @@ def soak_config(n_peers: int) -> CommunityConfig:
         malicious_gossip=True, p_symmetric=0.3, churn_rate=0.03,
         packet_loss=0.1, msg_requests=True, identity_enabled=True,
         identity_required=True, identity_requests=True,
-        direct_meta_mask=1 << DIRECT)
+        direct_meta_mask=1 << DIRECT, auto_load=False)
 
 
 # Metas of the soak community: a public post, the protected dynamic
@@ -365,6 +476,24 @@ SOAK_GRANT = (perm_bit(SOAK_PROTECTED, "permit")
               | perm_bit(SOAK_POST, "undo"))
 SOAK_GRANT_ROUNDS = (0, 1, 2)
 SOAK_ROUNDS = range(3, 11)          # the posting rounds
+# The soak file's lifecycle (rounds 250 and 330 of its 600): members
+# 30-39 of 510 unload, 30-34 load again.  Here the same share of the
+# members from the same place, in the 3 + 8 rounds.
+R_UNLOAD, R_LOAD = 4, 7
+
+
+class Unload(NamedTuple):
+    """``engine.unload_members`` of the masked peers before ``step`` of
+    ``round``."""
+    round: int
+    peers: np.ndarray          # bool[N]
+
+
+class Load(NamedTuple):
+    """``engine.load_members`` of the masked peers before ``step`` of
+    ``round``."""
+    round: int
+    peers: np.ndarray          # bool[N]
 
 
 class SigRequest(NamedTuple):
@@ -388,11 +517,12 @@ class Undo(NamedTuple):
 
 
 def soak_roles(n_peers: int, seed: int = 0, degree: int = 8) -> dict:
-    """The authors (every 64th non-tracker peer, as bool[N]) and the
-    four grantees: the first four of the founder's neighbours that
+    """The authors (every 64th non-tracker peer, as bool[N]); the four
+    grantees: the first four of the founder's neighbours that
     ``engine.seed_overlay(state, cfg, degree)`` gives under ``seed``, so
     that the founder's round-0 to 2 pushes of their grants can reach
-    them directly."""
+    them directly; the block that unloads and the half of it that loads
+    again (bool[N])."""
     import torch
 
     from dispersy_tpu_torch.engine import overlay_draw
@@ -402,8 +532,16 @@ def soak_roles(n_peers: int, seed: int = 0, degree: int = 8) -> dict:
     nbr = overlay_draw(torch.tensor(seed_key(seed), dtype=torch.int64),
                        cfg, torch.tensor([f]), degree)[0].numpy()
     idx = np.arange(n_peers)
+    grantees = nbr[nbr >= 0][:4]
+    # The unloaded block: the soak file's rows 30-39 of 512 scaled to
+    # n_peers, without the founder and the grantees (their grants and
+    # protected posts drive the channels); its first half loads again.
+    lo, hi = 30 * n_peers // 512, 40 * n_peers // 512
+    unload = (idx >= lo) & (idx < hi)
+    unload[[f, *grantees]] = False
+    reload = unload & (idx < (lo + hi) // 2)
     return {"authors": (idx >= t) & ((idx - t) % 64 == 0),
-            "grantees": nbr[nbr >= 0][:4]}
+            "grantees": grantees, "unloaded": unload, "reloaded": reload}
 
 
 def soak_schedule(n_peers: int, seed: int = 0, degree: int = 8) -> list:
@@ -420,7 +558,9 @@ def soak_schedule(n_peers: int, seed: int = 0, degree: int = 8) -> list:
     the protected meta (receivers without the grant park and ask for
     the proof) and, from round 4, undo their round-3 post (receivers
     without it park and ask for it).  A post reaching a peer without
-    its author's identity parks and asks for it."""
+    its author's identity parks and asks for it.  Before round
+    :data:`R_UNLOAD` the block ``soak_roles(...)["unloaded"]`` unloads;
+    before round :data:`R_LOAD` its first half loads again."""
     n = n_peers
     roles = soak_roles(n, seed, degree)
     authors, grantees = roles["authors"], roles["grantees"]
@@ -456,6 +596,8 @@ def soak_schedule(n_peers: int, seed: int = 0, degree: int = 8) -> list:
             out.append(Create(r, SOAK_POST, g_mask, pay + 5, zero))
         else:
             out.append(Undo(r, g_mask, SOAK_POST))
+    out += [Unload(R_UNLOAD, roles["unloaded"]),
+            Load(R_LOAD, roles["reloaded"])]
     return sorted(out, key=lambda c: c.round)
 
 
@@ -479,8 +621,8 @@ def plant_fwd(fwd: dict, plant: Plant) -> dict:
 
 
 def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
-    """Make the creates, plants and tracks of round ``rnd`` on a port
-    state, in order (an undo-other's aux read from the state's own store
+    """Make the creates, plants, tracks, unloads and loads of round
+    ``rnd`` on a port state, in order (an undo-other's aux read from the state's own store
     rows)."""
     import torch
 
@@ -497,6 +639,20 @@ def run_creates(state, cfg: CommunityConfig, creates: list, rnd: int):
             continue
         if isinstance(c, Track):
             state, _ = engine.track_record(state, cfg, c.author, c.gt)
+            continue
+        if isinstance(c, CreateMissing):
+            ids = np.flatnonzero(c.authors)
+            g, m, t = rows(ids)
+            has = ((m == ids[:, None]) & (t == c.meta)
+                   & (g != EMPTY_U32)).any(axis=1)
+            c = Create(c.round, c.meta, np.isin(np.arange(len(c.authors)),
+                                                ids[~has]),
+                       c.payload, np.zeros_like(c.payload))
+        if isinstance(c, (Unload, Load)):
+            m = torch.from_numpy(c.peers).to(state.device)
+            state = (engine.unload_members(state, cfg, m)
+                     if isinstance(c, Unload)
+                     else engine.load_members(state, m))
             continue
         if isinstance(c, SigRequest):
             state = engine.create_signature_request(
@@ -557,7 +713,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
                    seed: int = 0, top: int = 15, diet: bool = False,
                    timeline: bool = False, hardened: bool = False,
                    chaos: bool = False, observed: bool = False,
-                   soak: bool = False) -> dict:
+                   soak: bool = False, communities: bool = False) -> dict:
     """Trace ``rounds`` rounds of a main path on the card with
     ``torch.profiler``: the legacy ring (:func:`slice_config`); with
     ``diet``, the byte-diet round of :func:`bench_config` (3 rounds after
@@ -575,7 +731,11 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     traced rounds as ``diet``'s); with ``soak``, the soak round of
     :func:`soak_config` driven by :func:`soak_schedule` (the traced
     rounds 3-5: posts, sequence gaps, undos, drafts, the pen's four
-    channels).  Reports wall time; device busy time (the sum
+    channels); with ``communities``, config #5 of
+    :func:`communities_config` driven by :func:`communities_schedule`
+    (the traced rounds 3-5: the grantees' protected records and their
+    retries; pass ``n_peers=1_000_000`` for the config's own width).
+    Reports wall time; device busy time (the sum
     of the device-side events' times -- the round runs on one stream);
     the share of it in the hand-written kernels; the device time the
     profiler gives each of the engine's plane ranges
@@ -584,8 +744,8 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     the device time of its own kernels) and as device kernels.  Needs a
     CUDA card; the run is driven as ``chip_smoke.py``'s main path is.
     ``python -m dispersy_tpu_torch.profiling [--diet | --timeline |
-    --hardened | --chaos | --observed | --soak]`` prints it as one JSON
-    line."""
+    --hardened | --chaos | --observed | --soak | --communities]`` prints
+    it as one JSON line (``--communities`` at 1,000,000 peers)."""
     import time
 
     import torch
@@ -596,10 +756,14 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     from dispersy_tpu_torch.state import init_state
     from dispersy_tpu_torch.storediet import phase_of
 
-    if diet + timeline + hardened + chaos + observed + soak > 1:
+    if (diet + timeline + hardened + chaos + observed + soak
+            + communities > 1):
         raise ValueError("pick one of diet, timeline, hardened, chaos, "
-                         "observed and soak")
-    if soak:
+                         "observed, soak and communities")
+    if communities:
+        cfg = communities_config(n_peers)
+        creates = communities_schedule(n_peers, seed)
+    elif soak:
         cfg = soak_config(n_peers)
         creates = soak_schedule(n_peers, seed)
     elif observed:
@@ -656,7 +820,7 @@ def profile_rounds(n_peers: int = 1 << 20, warmup: int = 3, rounds: int = 3,
     return {
         "n_peers": n_peers, "rounds": rounds, "diet": diet,
         "timeline": timeline, "hardened": hardened, "chaos": chaos,
-        "observed": observed, "soak": soak,
+        "observed": observed, "soak": soak, "communities": communities,
         "phases": [phase_of(cfg, warmup + i) for i in range(rounds)],
         "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy,
@@ -2302,6 +2466,9 @@ if __name__ == "__main__":
                        help="trace the soak round of soak_config (the "
                        "delay pen, its request channels, double-signed "
                        "and direct metas)")
+    which.add_argument("--communities", action="store_true",
+                       help="trace config #5 (communities_config: 8 "
+                       "communities with the Timeline) at 1,000,000 peers")
     args = ap.parse_args()
     if args.delivery is not None:
         for run in (profile_roots(args.delivery, "profile_delivery()")
@@ -2330,4 +2497,7 @@ if __name__ == "__main__":
                                     hardened=args.hardened, chaos=args.chaos,
                                     observed=args.observed,
                                     soak=args.soak,
+                                    communities=args.communities,
+                                    n_peers=(1_000_000 if args.communities
+                                             else 1 << 20),
                                     rounds=5 if args.timeline else 3)))

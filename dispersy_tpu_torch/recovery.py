@@ -45,3 +45,28 @@ def recovery_report(state, cfg) -> dict:
     }
     out.update(action_totals(state.stats))
     return out
+
+
+def adapt_state(state, old_cfg, new_cfg):
+    """Resize the recovery plane's leaves across a flip of
+    ``recovery.enabled`` (turned on: no backoff, quarantine or repair
+    history and zero counters; turned off: dropped), and the telemetry
+    row with them; any other swap passes the state through."""
+    import torch
+
+    from dispersy_tpu_torch.telemetry import adapt_row_leaves
+    from dispersy_tpu_torch.u32 import zeros
+    if old_cfg.recovery.enabled == new_cfg.recovery.enabled:
+        return state
+    n = new_cfg.n_peers if new_cfg.recovery.enabled else 0
+    dev = state.device
+    state = state.replace(
+        backoff=torch.zeros((n,), dtype=torch.uint8, device=dev),
+        quar_until=zeros((n,), torch.uint32, dev),
+        repair_round=zeros((n,), torch.uint32, dev),
+        stats=state.stats.replace(
+            recov_soft=zeros((n,), torch.uint32, dev),
+            recov_backoff=zeros((n,), torch.uint32, dev),
+            recov_quarantine=zeros((n,), torch.uint32, dev),
+            recov_cleared=zeros((n, NUM_HEALTH_BITS), torch.uint32, dev)))
+    return adapt_row_leaves(state, old_cfg, new_cfg)

@@ -18,7 +18,7 @@ from dispersy_tpu_torch.config import (EMPTY_META, EMPTY_U32, NO_PEER,
 from dispersy_tpu_torch.planes import NUM_HEALTH_BITS
 from dispersy_tpu_torch.telemetry import FLIGHT_WIDTH, row_width
 from dispersy_tpu_torch.traceplane import NUM_CHANNELS
-from dispersy_tpu_torch.u32 import full_u32, narrow, zeros
+from dispersy_tpu_torch.u32 import bits, full_u32, narrow, unbits, zeros
 
 NEVER = -1.0e9  # "timestamp never happened" for float32 sim-seconds fields
 FLAG_UNDONE = 1
@@ -349,3 +349,120 @@ def init_state(config: CommunityConfig, seed: int = 0,
         time=torch.zeros((), dtype=torch.float32, device=dev),
         round_index=u32(()),
     )
+
+
+# Every PeerState leaf's wipe class (a copy of the JAX package's
+# inventory): "lifecycle" (alive / loaded), "identity" (structural, kept
+# by rebirth, unload and restart), "process" (per-process bookkeeping),
+# "clock" (reset by rebirth), "disk" (the database: kept by unload,
+# wiped with the store by a wiped-disk rebirth), "instance" (community-
+# instance memory, wiped by rebirth and by unload; the second element
+# names the fill), "stats" (kept like the counters) and "global"
+# (leaves with no per-peer row).
+WIPE_INVENTORY: dict = {
+    "alive": ("lifecycle", None),
+    "loaded": ("lifecycle", None),
+    "is_tracker": ("identity", None),
+    "session": ("clock", None),
+    "global_time": ("clock", None),
+    "health": ("process", None),
+    "ge_bad": ("identity", None),
+    "backoff": ("process", None),
+    "quar_until": ("identity", None),
+    "repair_round": ("process", None),
+    "bucket": ("identity", None),
+    "walk_streak": ("stats", None),
+    "tele_row": ("global", None),
+    "tele_ring": ("global", None),
+    "fr_ring": ("global", None),
+    "fr_pos": ("global", None),
+    "trace_member": ("global", None),
+    "trace_gt": ("global", None),
+    "trace_first": ("disk", None),
+    "trace_chan": ("disk", None),
+    "trace_dups": ("disk", None),
+    "trace_latch": ("global", None),
+    "cand_peer": ("instance", "no_peer"),
+    "cand_last_walk": ("instance", "never"),
+    "cand_last_stumble": ("instance", "never"),
+    "cand_last_intro": ("instance", "never"),
+    "store_gt": ("disk", None),
+    "store_member": ("disk", None),
+    "store_meta": ("disk", None),
+    "store_payload": ("disk", None),
+    "store_aux": ("disk", None),
+    "store_flags": ("disk", None),
+    "sta_gt": ("disk", None),
+    "sta_member": ("disk", None),
+    "sta_meta": ("disk", None),
+    "sta_payload": ("disk", None),
+    "sta_aux": ("disk", None),
+    "sta_flags": ("disk", None),
+    "digest": ("disk", None),
+    "cohort": ("identity", None),   # idx % cohorts — structural, like
+    #   is_tracker: rebirth/unload/restart all keep it
+    "epoch": ("disk", None),        # wiped with the store by rebirth and
+    #   immediately RE-DERIVED from (round, cohort) in the same block
+    #   (engine._rebirth_wipe): the reborn peer rejoins the fleet cadence
+    #   at the epoch every surviving peer already attributes to it
+    "fwd_gt": ("instance", "empty"),
+    "fwd_member": ("instance", "empty"),
+    "fwd_meta": ("instance", "empty"),
+    "fwd_payload": ("instance", "empty"),
+    "fwd_aux": ("instance", "empty"),
+    "auth_member": ("disk", None),
+    "auth_mask": ("disk", None),
+    "auth_gt": ("disk", None),
+    "auth_rev": ("disk", None),
+    "auth_issuer": ("disk", None),
+    "mal_member": ("instance", "empty"),
+    "dly_gt": ("instance", "empty"),
+    "dly_member": ("instance", "empty"),
+    "dly_meta": ("instance", "empty"),
+    "dly_payload": ("instance", "empty"),
+    "dly_aux": ("instance", "zero"),
+    "dly_since": ("instance", "zero"),
+    "dly_src": ("instance", "no_peer"),
+    "sig_target": ("instance", "no_peer"),
+    "sig_meta": ("instance", "zero"),
+    "sig_payload": ("instance", "zero"),
+    "sig_gt": ("instance", "zero"),
+    "sig_since": ("instance", "zero"),
+    "key": ("global", None),
+    "time": ("global", None),
+    "round_index": ("global", None),
+}
+
+# The "instance" rows of WIPE_INVENTORY with their fill kinds: what
+# engine.unload_members and checkpoint._wipe_ephemeral wipe.
+INSTANCE_MEMORY_FIELDS: tuple = tuple(
+    (name, fill) for name, (cls, fill) in WIPE_INVENTORY.items()
+    if cls == "instance")
+
+
+def wipe_instance_memory(state: PeerState, mask: torch.Tensor) -> PeerState:
+    """Every :data:`INSTANCE_MEMORY_FIELDS` leaf filled with its empty
+    value on the rows of ``mask`` (bool [N]), the other rows untouched.
+    ``"empty"`` is the all-ones word of the column's own dtype,
+    ``"never"`` the f32 ``NEVER`` or 0 in the u16 stamp columns,
+    ``"no_peer"`` ``NO_PEER``; a zero-width plane leaf is skipped."""
+    n = mask.shape[0]
+    updates = {}
+    for name, kind in INSTANCE_MEMORY_FIELDS:
+        arr = getattr(state, name)
+        if arr.dim() >= 1 and arr.shape[0] != n:
+            continue
+        m = mask.to(arr.device).reshape((n,) + (1,) * (arr.dim() - 1))
+        # torch.where has no u32 / u16 form on the card: the signed view.
+        view = bits(arr)
+        if kind == "empty":
+            fill = -1 if view is not arr else torch.iinfo(arr.dtype).max
+        elif kind == "never":
+            fill = NEVER if arr.is_floating_point() else 0
+        elif kind == "no_peer":
+            fill = NO_PEER
+        else:
+            fill = 0
+        updates[name] = unbits(torch.where(m, torch.full(
+            (), fill, dtype=view.dtype, device=arr.device), view), arr.dtype)
+    return state.replace(**updates)

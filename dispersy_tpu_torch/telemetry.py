@@ -295,3 +295,21 @@ def flight_records(state, cfg) -> list:
                              if d["health"] & bit]
         out.append(d)
     return out
+
+
+def adapt_row_leaves(state, old_cfg, new_cfg):
+    """``tele_row`` / ``tele_ring`` reset to zero at the new row width when
+    a config swap changed it (a recovery or overload flip adds or drops
+    its words; old rows cannot be decoded under the new schema).  The
+    state unchanged when the width did not change."""
+    import torch
+
+    from dispersy_tpu_torch.u32 import zeros
+    new_w = row_width(new_cfg)
+    if new_w == row_width(old_cfg):
+        return state
+    dev = state.device
+    return state.replace(
+        tele_row=zeros((new_w,), torch.uint32, dev),
+        tele_ring=zeros((new_cfg.telemetry.history, new_w), torch.uint32,
+                        dev))

@@ -35,4 +35,5 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "bridge.py", "chip_smoke.py", "intake.py",
             "timeline.py", "profiling.py", "telemetry.py",
-            "traceplane.py", "trace.py"} <= names
+            "traceplane.py", "trace.py", "checkpoint.py",
+            "scenario.py"} <= names

@@ -6,7 +6,7 @@ PeerState leaf and counter after every event and every round, and on
 Three configs, each compiled once on the JAX side: (a) the pen with all
 four channels -- ``profiling.soak_config`` at 256 peers with 30% loss,
 churn, the telemetry plane and 4 shards -- driven by
-``profiling.soak_schedule``;
+``profiling.soak_schedule`` (its unload and load included);
 (b) the signature exchange on a protected dynamic double-signed meta
 with ``countersign_rate=0.5``, after ``tests/test_signature.py``'s cases
 (happy path, decline and expiry, both signers' permits, a synced copy
@@ -55,6 +55,10 @@ def jax_event(js, jc, ev):
         return jeng.create_signature_request_jit(
             js, jc, jnp.asarray(ev.authors), ev.meta,
             jnp.asarray(ev.counterparty), jnp.asarray(ev.payload))
+    if isinstance(ev, profiling.Unload):
+        return jeng.unload_members_jit(js, jc, jnp.asarray(ev.peers))
+    if isinstance(ev, profiling.Load):
+        return jeng.load_members_jit(js, jnp.asarray(ev.peers))
     if isinstance(ev, profiling.Plant):
         cols = {k: np.asarray(getattr(js, f"fwd_{k}"))
                 for k in profiling.FWD_COLS}
